@@ -1,35 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, before the result line):
+Phases, in order (any failure exits non-zero, before the result line):
 
-  build    compile the ckpt_delta CUDA kernels from the sources in this
-           checkout (nvcc, sm_90a) and print the build seconds;
-  kernels  hold each of the four kernels against its plain PyTorch
-           version on the card, at small awkward sizes and at the packed
-           size of the 2-layer yi-6b-width train state (2,611,015,680
-           float32 elements, past 2^31): every output bit for bit.  Time
-           plain and kernel in turns (plain, kernel, kernel, plain) and
-           compute each kernel's bound from the bytes it must move and the
-           card's memory rate;
-  trainer  run ``repro_torch``'s ResilientTrainer at yi-6b width with
-           num_layers 32 -> 2 (bf16 compute, f32 params and AdamW state,
-           batch 2 x 1024 tokens, random weights from a seed) under a
-           device-placed incremental plan: a full and a lossless delta
-           trigger, an injected task failure restored through the decode
-           kernel and checked BIT-EQUAL to the saved state; then
-           ``reconfigure_plan`` to the int8 codec, a delta trigger, a
-           second failure and a restore checked within the per-group
-           max|delta|/254 bound.  The kernel launch counts are reset just
-           before this phase and read just after it.
+  build        compile the ckpt_delta CUDA kernels from the sources in this
+               checkout (nvcc, sm_90a) and print the build seconds;
+  kernels      hold each of the six kernels against its plain PyTorch
+               version on the card, every output bit for bit: the four
+               flat kernels (#1-#4) at small awkward sizes and at the packed
+               size of the 2-layer yi-6b-width train state (2,611,015,680
+               float32 elements, past 2^31), the two per-leaf encodes
+               (#5/#6) at awkward leaf sizes and at every leaf shape of that
+               state.  Time plain and kernel in turns (plain, kernel,
+               kernel, plain) and compute each kernel's bound from the
+               bytes it must move and the card's memory rate;
+  calibration  the device section of the checkpoint calibration
+               (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
+               on a fresh 2-layer yi-6b-width state: the fused encodes
+               (#1/#2) against the per-leaf baseline (#5/#6, one launch per
+               packed leaf and repetition).  No disk writes;
+  lossless     run ``repro_torch``'s ResilientTrainer at yi-6b width with
+               num_layers 32 -> 2 (bf16 compute, f32 params and AdamW
+               state, batch 2 x 1024 tokens, random weights from a seed)
+               under a device-placed incremental lossless plan: a full and
+               a delta trigger, an injected task failure restored through
+               the decode kernel and checked BIT-EQUAL to the saved state;
+  artifact     the ``bench_ckpt/3`` calibration artifact: the host figures
+               from the lossless half's own saves and restore, the rest
+               from the bench at its own scale, loaded by the port's
+               ``SimCostModel.from_calibration``;
+  khaos 1-2    ``KhaosRuntime`` records the trainer stream's steady state
+               and profiles a (failure point x CI) grid on simulated
+               deployments priced by that cost model, fitting M_L and M_R;
+  khaos 3      the runtime attaches to the live trainer; the backlog the
+               lossless delta's stall left violates the latency constraint
+               and the controller's Decision switches the plan to int8;
+  int8         under the switched plan: a full, an int8 delta trigger, a
+               second failure and a restore checked within the per-group
+               max|delta|/254 bound.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
-``src/repro_torch`` package beside this file, it exits non-zero and prints
-no result.  Checkpoints go to ``.chip_smoke_ckpt/`` in the checkout and
-are removed at the end.
+Kernel launch counts are set to 0 just before the calibration path and
+read just after it (#5/#6), and again around the trainer path, from the
+lossless half to the int8 half (#1-#4).  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+With no CUDA device, or without the ``src/repro_torch`` package beside
+this file, it exits non-zero and prints no result.  Checkpoints go to
+``.chip_smoke_ckpt/`` in the checkout and are removed at the end.
 """
 from __future__ import annotations
 
@@ -39,7 +57,9 @@ import os
 # large, differently sized buffers and must not fragment
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import importlib.util
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -49,12 +69,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CKPT_DIR = ROOT / ".chip_smoke_ckpt"
+BENCH = ROOT / "benchmarks" / "torch_bench_ckpt.py"
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
 CHECK_CHUNK = GROUP << 18          # elements per plain-version comparison
-RUN_S = 5e3                        # virtual seconds per trainer run() call
+RUN_S = 5e3                        # virtual-second cap of a scripted run()
 INT8_SLACK = 1 + 2 ** -16 + 1e-6   # f32 rounding on top of amax/254
+# awkward per-leaf shapes: 1, 1023, 1025, 3*1024+7 elements, a multi-dim
+# leaf, and an all-unchanged leaf (the last)
+LEAF_SHAPES = ((1,), (GROUP - 1,), (GROUP + 1,), (3 * GROUP + 7,),
+               (3, 5, 70), (2, GROUP))
+
+# the trainer's stream: a slow wave around STREAM_RATE events/s (one
+# event is one 1024-token sequence; the job drains ~20/s on an H100)
+STREAM_RATE = 4.0
+STREAM_WAVE = 0.25                 # +-25 % over STREAM_PERIOD_S
+STREAM_PERIOD_S = 3600.0
+DETECT_S, RESTART_S = 2.0, 1.0     # trainer failure detection / restart
+LOSSLESS_STEPS = 20                # steps of the lossless half
+KHAOS_PERIOD_S = 5.0               # controller optimization period
+CI_GRID = (1.5, 3.0, 6.0)          # profiled CIs, x the calibrated full write
 
 KERNELS = {
     # name: (TPU kernel replaced, bytes per element, ops per element)
@@ -66,7 +101,13 @@ KERNELS = {
                         16, 2),
     "delta_decode": ("src/repro/kernels/ckpt_delta/kernel.py:267",
                      5 + 4 / GROUP, 2),
+    "lossless_encode": ("src/repro/kernels/ckpt_delta/kernel.py:128",
+                        16, 3),
+    "delta_encode": ("src/repro/kernels/ckpt_delta/kernel.py:82",
+                     9 + 4 / GROUP, 7),
 }
+#: the path whose launch counts each kernel's row reports
+CALIBRATION_KERNELS = ("lossless_encode", "delta_encode")
 SOURCE = "src/repro_torch/kernels/ckpt_delta/csrc/ckpt_delta.cu"
 
 
@@ -184,13 +225,8 @@ def kernel_phase(dev, hbm: float, flops: float) -> dict:
         r["mismatches"] += mism
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if timing is not None:
-            bytes_per, ops_per = KERNELS[name][1], KERNELS[name][2]
-            b_ms = n * bytes_per / hbm * 1e3
-            o_ms = n * ops_per / flops * 1e3
-            r.update(ms=timing[0], plain_ms=timing[1],
-                     bound_ms=max(b_ms, o_ms),
-                     bound_by="bytes" if b_ms >= o_ms else "operations",
-                     elements=n)
+            r.update(ms=timing[0], plain_ms=timing[1], elements=n,
+                     **_bound(name, n, hbm, flops))
 
     for n in (7 * GROUP, 3001 * GROUP, FLAT_ELEMENTS):
         big = n == FLAT_ELEMENTS
@@ -283,6 +319,152 @@ def kernel_phase(dev, hbm: float, flops: float) -> dict:
     return results
 
 
+def _bound(name: str, n: int, hbm: float, flops: float) -> dict:
+    """The least time the card could take for ``n`` elements: bytes over
+    the HBM rate or operations over the fp32 rate, whichever is larger."""
+    bytes_per, ops_per = KERNELS[name][1], KERNELS[name][2]
+    b_ms = n * bytes_per / hbm * 1e3
+    o_ms = n * ops_per / flops * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def _state_leaves(model_cfg) -> list:
+    """(name, shape) of every f32 leaf of the train state, from a state
+    built on the meta device (no memory)."""
+    import torch
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.models import zoo
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.trees import tree_flatten_with_names
+
+    meta = zoo.init_state(model_cfg, make_optimizer(OptimizerConfig()),
+                          None, "meta")
+    return [(name, tuple(leaf.shape))
+            for name, leaf in tree_flatten_with_names(meta)
+            if leaf.dtype == torch.float32]
+
+
+def per_leaf_phase(dev, hbm: float, flops: float, leaves: list) -> dict:
+    """Kernels #5/#6 (the per-leaf encodes) against their plain versions:
+    at awkward leaf sizes through the wrappers (padding, ``changed``,
+    ``resid_nnz``), then at every leaf shape of the train state, as views
+    into one packed pair, every output bit for bit; then timed over all
+    the leaves in turns."""
+    import torch
+    from repro_torch.checkpoint.pipeline import FlatLayout
+    from repro_torch.kernels.ckpt_delta import kernel as K
+    from repro_torch.kernels.ckpt_delta import ops
+    from repro_torch.kernels.ckpt_delta import ref as R
+
+    res = {name: {"mismatches": 0, "max_abs_err": 0.0}
+           for name in CALIBRATION_KERNELS}
+
+    def record(name, outs, plain):
+        r = res[name]
+        for k, p in zip(outs, plain):
+            m, e = _diff(k, p)
+            r["mismatches"] += m
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for i, shape in enumerate(LEAF_SHAPES):
+        base = torch.randn(shape, device=dev, generator=gen)
+        new = base.clone()
+        if i < len(LEAF_SHAPES) - 1:                 # the last: unchanged
+            new += 1e-2 * torch.randn(shape, device=dev, generator=gen)
+            new.view(-1)[::7] *= -3.7                # residual-bearing
+        nf, bf = R.pad_to_groups(new), R.pad_to_groups(base)
+        d, r, changed, nnz = ops.lossless_encode_leaf(new, base)
+        pd, pr = R.lossless_encode(nf, bf)
+        record("lossless_encode", (d, r), (pd, pr))
+        check(bool(changed) == bool((new != base).any()) and
+              int(nnz) == int(torch.count_nonzero(pr)),
+              f"lossless_encode_leaf stats wrong at shape {shape}")
+        q, s, changed8 = ops.int8_encode_leaf(new, base)
+        record("delta_encode", (q, s), R.int8_encode(nf, bf))
+        check(bool(changed8) == bool(changed),
+              f"int8_encode_leaf changed flag wrong at shape {shape}")
+
+    layout = FlatLayout(leaves)
+    check(layout.total == FLAT_ELEMENTS,
+          f"train state packs to {layout.total}, not {FLAT_ELEMENTS}")
+    base = torch.randn(layout.total, device=dev, generator=gen)
+    new = torch.randn(layout.total, device=dev,
+                      generator=gen).mul_(1e-3).add_(base)
+    new[::97] *= -3.7
+    new[5::4099] = base[5::4099]
+    views = [(new[e.offset:e.offset + e.size].view(e.shape),
+              base[e.offset:e.offset + e.size].view(e.shape))
+             for e in layout.entries]
+    seen = set()
+    for (nv, bv), entry in zip(views, layout.entries):
+        if entry.shape in seen:
+            continue
+        seen.add(entry.shape)
+        nf, bf = R.pad_to_groups(nv), R.pad_to_groups(bv)
+        record("lossless_encode", K.lossless_encode(nf, bf),
+               R.lossless_encode(nf, bf))
+        record("delta_encode", K.int8_encode(nf, bf), R.int8_encode(nf, bf))
+    for name in CALIBRATION_KERNELS:
+        check(res[name]["mismatches"] == 0,
+              f"{name} differs from plain: {res[name]['mismatches']} "
+              f"mismatches")
+    log(f"per-leaf kernels: every output equals the plain version at "
+        f"{len(LEAF_SHAPES)} awkward shapes and all {len(seen)} leaf "
+        f"shapes of the train state")
+
+    def over_leaves(fn):
+        def run():
+            for nv, bv in views:
+                fn(R.pad_to_groups(nv), R.pad_to_groups(bv))
+        return run
+
+    for name, kfn, pfn in (("lossless_encode", K.lossless_encode,
+                            R.lossless_encode),
+                           ("delta_encode", K.int8_encode, R.int8_encode)):
+        ms, plain_ms = _turns(over_leaves(kfn), over_leaves(pfn))
+        res[name].update(ms=ms, plain_ms=plain_ms, elements=layout.total,
+                         **_bound(name, layout.total, hbm, flops))
+        r = res[name]
+        log(f"  {name}: {r['ms']:.3f} ms kernel over {len(views)} leaves, "
+            f"{r['plain_ms']:.3f} ms plain, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+    del views, base, new
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
+def calibration_phase(model_cfg, dev) -> dict:
+    """The device section of the checkpoint calibration on a fresh train
+    state of its own (freed after): fused encodes vs the per-leaf
+    baseline, and one DeltaLeafSource trigger's bytes on the link."""
+    import torch
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.models import zoo
+    from repro_torch.optim import make_optimizer
+
+    bench = _bench()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = zoo.init_state(model_cfg, make_optimizer(OptimizerConfig()),
+                           gen, dev)
+    torch.cuda.synchronize()
+    device_section = bench.bench_device_delta(state=state, reps=5)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return device_section
+
+
+def _bench():
+    """``benchmarks/torch_bench_ckpt.py``, by path."""
+    spec = importlib.util.spec_from_file_location("torch_bench_ckpt", BENCH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 # ---------------------------------------------------------------------------
 # trainer phase
 # ---------------------------------------------------------------------------
@@ -339,98 +521,313 @@ def _check_int8_bound(got: dict, want: dict, base: dict) -> float:
     return worst
 
 
-def trainer_phase(model_cfg, device, ckpt_dir: Path, batch: int,
-                  seq_len: int) -> dict:
-    """The port's main path: a live trainer, a full and a delta trigger,
-    a failure restored through the decode kernel, a plan switch to int8
-    and a second failure.  Returns what it measured."""
-    import numpy as np
-    import torch
-    from repro_torch.config import CheckpointPlan, OptimizerConfig, replace
-    from repro_torch.data.stream import EventStream, constant_rate
-    from repro_torch.models.zoo import state_to_numpy
-    from repro_torch.runtime import (ResilientTrainer, TrainerConfig,
-                                     TrainerJobHandle)
+class _StopRun(Exception):
+    """Raised by a scripted on-step callback to end a trainer run between
+    two steps."""
 
-    # replication_factor 0: the card's machine takes at most 45 GiB of
-    # disk writes per run, and the run writes three full snapshots (10.44 GB
-    # each) and two deltas; one ring replica per shard would double every
-    # full (the replicated store is exercised by the CPU tests).  keep 1:
-    # every newest()/gc CRC-reads each kept full, 10.44 GB apiece
-    plan = CheckpointPlan(interval_s=1e9, mode="incremental", full_every=2,
-                          encode_placement="device", delta_codec="lossless",
-                          levels=("local",), sync=True, codec="zlib",
-                          replication_factor=0, keep=1)
-    # each run() below ends with an injected failure whose detection time
-    # (2 * RUN_S virtual seconds) carries the clock past the run's end, so
-    # the run returns right after the restore, before another step
-    tcfg = TrainerConfig(batch=batch, seq_len=seq_len, ckpt_dir=str(ckpt_dir),
-                         time_scale=1.0, detect_s=2 * RUN_S, restart_s=1.0,
-                         plan=plan)
-    stream = EventStream(schedule=constant_rate(1000.0))
-    tr = ResilientTrainer(model_cfg, tcfg, stream,
-                          OptimizerConfig(total_steps=1000, lr=1e-4,
-                                          warmup_steps=1),
-                          seed=0, device=device)
-    job = TrainerJobHandle(tr)
-    saved: dict = {}
 
-    def scripted(script: dict):
-        """on-step callback: at step k run ``script[k]`` (the actions a
-        controller takes through the JobHandle protocol)."""
-        k0 = len(tr.losses)
+def wave_rate(base: float, amplitude: float, period: float):
+    """The stream's rate schedule: ``base * (1 + amplitude * sin(2 pi t /
+    period))`` events/s (its trough and peak lie inside one period, where
+    Phase 1 finds them)."""
+    return lambda t: base * (1.0 + amplitude * math.sin(2 * math.pi * t
+                                                        / period))
+
+
+class TrainerRun:
+    """The live trainer and the scripts that drive it, phase by phase."""
+
+    def __init__(self, model_cfg, device, ckpt_dir: Path, batch: int,
+                 seq_len: int, rate: float = STREAM_RATE,
+                 time_scale: float = 1.0):
+        from repro_torch.config import CheckpointPlan, OptimizerConfig
+        from repro_torch.data.stream import EventStream
+        from repro_torch.runtime import (ResilientTrainer, TrainerConfig,
+                                         TrainerJobHandle)
+
+        # replication_factor 0: the card's machine takes at most 45 GiB of
+        # disk writes per run, and the run writes three full snapshots
+        # (10.44 GB each) and two deltas; one ring replica per shard would
+        # double every full (the replicated store is exercised by the CPU
+        # tests).  keep 1: every newest()/gc CRC-reads each kept full
+        self.plan = CheckpointPlan(interval_s=1e9, mode="incremental",
+                                   full_every=2, encode_placement="device",
+                                   delta_codec="lossless", levels=("local",),
+                                   sync=True, codec="zlib",
+                                   replication_factor=0, keep=1)
+        self.schedule = wave_rate(rate, STREAM_WAVE, STREAM_PERIOD_S)
+        self.tcfg = TrainerConfig(batch=batch, seq_len=seq_len,
+                                  ckpt_dir=str(ckpt_dir),
+                                  time_scale=time_scale, detect_s=DETECT_S,
+                                  restart_s=RESTART_S, plan=self.plan)
+        self.tr = ResilientTrainer(
+            model_cfg, self.tcfg, EventStream(schedule=self.schedule),
+            OptimizerConfig(total_steps=1000, lr=1e-4, warmup_steps=1),
+            seed=0, device=device)
+        self.job = TrainerJobHandle(self.tr)
+        self.saved: dict = {}
+
+    # -- scripted actions ----------------------------------------------
+    def trigger(self):
+        """Make the next loop's cadence check due, once: the interval (1e9
+        s between the scripted triggers) stays; the last trigger moves one
+        interval back."""
+        policy = self.tr.policy
+        policy.mark(self.tr.t - policy.interval_s)
+
+    def quiet(self):
+        """No cadence trigger: the checkpoints are the script's."""
+        self.job.reconfigure(1e9)
+
+    def copy(self, key: str):
+        from repro_torch.models.zoo import state_to_numpy
+        self.saved[key] = _flat(state_to_numpy(self.tr.state))
+
+    def run_script(self, script: dict) -> None:
+        """Run until the script's ``"stop"`` step: at step k (counted from
+        this call) run ``script[k]``'s actions."""
+        tr, k0 = self.tr, len(self.tr.losses)
 
         def on_step(info):
             k = len(tr.losses) - k0
             log(f"  step {int(tr.state['step'].item())}: loss "
-                f"{info['loss']:.6f}")
+                f"{info['loss']:.6f}, lag {info['lag']}")
             for action in script.get(k, ()):
+                if action == "stop":
+                    raise _StopRun
                 action()
-        return on_step
+        try:
+            tr.run(duration_s=RUN_S, on_second=on_step)
+        except _StopRun:
+            return
+        raise SmokeFailure(f"script {sorted(script)} did not reach its stop")
 
-    trigger = lambda: job.reconfigure(1e-6)       # next loop: checkpoint
-    quiet = lambda: job.reconfigure(1e9)
-    copy = lambda key: lambda: saved.__setitem__(
-        key, _flat(state_to_numpy(tr.state)))
-    fail = lambda: tr.inject_failure_at(tr.t, "task")
+    def fail_and_restore(self) -> None:
+        """A task failure now; the run lasts exactly the detection and
+        restart time, so it returns right after the restore."""
+        self.tr.inject_failure_at(self.tr.t, "task")
+        self.tr.run(duration_s=self.tcfg.detect_s + self.tcfg.restart_s)
+        check(self.tr.events[-1]["event"] == "restore",
+              f"no restore after the failure: {self.tr.events[-3:]}")
 
-    # -- lossless: full at step 2, delta at step 4, task failure --------
-    tr.run(duration_s=RUN_S, on_second=scripted({
-        2: [trigger], 3: [quiet], 4: [copy("lossless"), trigger],
-        5: [quiet, fail]}))
-    ev = [e for e in tr.events if e["event"] in ("checkpoint", "restore")]
-    check([e["kind"] for e in ev] == ["full", "delta", "full+delta"],
-          f"lossless phase events {ev}")
-    _check_bit_equal(_flat(tr.state), saved.pop("lossless"),
-                     "lossless full+delta restore")
-    log("lossless full+delta restore is bit-equal to the saved state")
+    def ckpt_events(self) -> list:
+        return [e for e in self.tr.events
+                if e["event"] in ("checkpoint", "restore")]
 
-    # -- int8: plan switch (drain savepoint), full, delta, failure ------
-    job.reconfigure_plan(replace(plan, delta_codec="int8"))
-    tr.run(duration_s=RUN_S, on_second=scripted({
-        1: [copy("base"), trigger], 2: [quiet],
-        3: [copy("int8"), trigger], 4: [quiet, fail]}))
-    ev2 = [e for e in tr.events if e["event"] in ("checkpoint", "restore")]
-    check([e["kind"] for e in ev2[len(ev):]] ==
-          ["savepoint", "full", "delta", "full+delta"],
-          f"int8 phase events {ev2[len(ev):]}")
-    margin = _check_int8_bound(_flat(tr.state), saved["int8"],
-                               saved["base"])
-    log(f"int8 full+delta restore within max|delta|/254 (worst margin "
-        f"{margin:.3e})")
-    summary = tr.summary()
-    check(all(np.isfinite(tr.losses)), "non-finite loss")
-    return {"losses": list(tr.losses), "events": ev2,
-            "ckpt_stats": summary["ckpt_stats"],
-            "step_s": summary["measured_step_s"]}
+    # -- phases ----------------------------------------------------------
+    def lossless_half(self) -> None:
+        """Full at step 2, lossless delta at step 4, task failure after
+        step LOSSLESS_STEPS (the steps between give the job's step time),
+        and a restore through the decode kernel checked bit-equal."""
+        self.run_script({2: [self.trigger],
+                         4: [lambda: self.copy("lossless"), self.trigger],
+                         LOSSLESS_STEPS: ["stop"]})
+        self.fail_and_restore()
+        ev = self.ckpt_events()
+        check([e["kind"] for e in ev] == ["full", "delta", "full+delta"],
+              f"lossless phase events {ev}")
+        _check_bit_equal(_flat(self.tr.state), self.saved.pop("lossless"),
+                         "lossless full+delta restore")
+        log("lossless full+delta restore is bit-equal to the saved state")
+
+    def int8_half(self, n_before: int) -> float:
+        """Under the int8 plan Khaos switched to: full, int8 delta, failure,
+        and a restore within the per-group amax/254 bound."""
+        self.quiet()
+        self.run_script({1: [lambda: self.copy("base"), self.trigger],
+                         3: [lambda: self.copy("int8"), self.trigger],
+                         4: ["stop"]})
+        self.fail_and_restore()
+        ev = self.ckpt_events()[n_before:]
+        check([e["kind"] for e in ev] ==
+              ["savepoint", "full", "delta", "full+delta"],
+              f"int8 phase events {ev}")
+        margin = _check_int8_bound(_flat(self.tr.state), self.saved["int8"],
+                                   self.saved["base"])
+        log(f"int8 full+delta restore within max|delta|/254 (worst margin "
+            f"{margin:.3e})")
+        return margin
+
+    def step_s(self) -> float:
+        """Median step time of the run so far, on the job's (virtual)
+        clock."""
+        import numpy as np
+        wall = np.median(self.tr.metrics.series("step_time").values)
+        return float(wall) * self.tcfg.time_scale
+
+
+def on_job_clock(cal: dict, time_scale: float) -> dict:
+    """The artifact's seconds on the trainer's virtual clock (wall seconds
+    x ``time_scale``; the identity at the smoke's time_scale of 1)."""
+    if time_scale == 1.0:
+        return cal
+    out = json.loads(json.dumps(cal))
+    for k in ("full_write_s", "restore_s", "delta_encode_s_per_byte"):
+        out[k] *= time_scale
+    for entry in out["device"].values():
+        for k in ("encode_s", "pack_s", "per_leaf_encode_s"):
+            entry[k] *= time_scale
+    return out
+
+
+def calibration_artifact(run: TrainerRun, device_section: dict,
+                         bench_dir: Path, device) -> tuple[dict, dict]:
+    """The bench_ckpt/3 artifact: state bytes, full write, restore and the
+    lossless delta fraction from the lossless half's own saves and
+    restore; the rest from the bench at its own scale (4) — it would take
+    disk writes the run cannot afford at full width.  Returns (artifact,
+    where each figure came from)."""
+    from repro_torch.utils.trees import tree_bytes
+
+    bench = _bench()
+    ev = run.ckpt_events()
+    full, delta, restore = ev[0], ev[1], ev[2]
+    _, meas = bench.bench_checkpoint(str(bench_dir / "micro"), scale=4,
+                                     device=device)
+    _, plans = bench.bench_plans(str(bench_dir / "plans"), triggers=6,
+                                 scale=4, device=device)
+    shutil.rmtree(bench_dir, ignore_errors=True)
+    meas.update(state_bytes=tree_bytes(run.tr.state),
+                full_write_s=full["blocking_s"],
+                restore_s=restore["duration_s"],
+                delta_fraction_lossless=(delta["bytes_written"]
+                                         / full["bytes_written"]))
+    cal = bench.build_calibration(meas, plans, device_section)
+    bench.validate_calibration(cal)
+    sources = {
+        "trainer (lossless half, full width)": [
+            "state_bytes", "full_write_s", "restore_s", "delta_fraction"],
+        "bench_checkpoint (scale 4)": [
+            "delta_int8_fraction", "snapshot_full_copy_s",
+            "async_blocking_s"],
+        "bench_plans (scale 4, 6 triggers)": [
+            "delta_encode_s_per_byte", "plans"],
+        "bench_device_delta (full width)": ["device"]}
+    return cal, sources
+
+
+def khaos_phases(run: TrainerRun, cal: dict) -> dict:
+    """Phases 1 and 2 on the host, then Phase 3 over the live trainer.
+
+    The constraints, as a user would set them from the calibrated costs:
+    the job may lag by the backlog that ONE lossless device delta, as the
+    calibrated model prices its write, leaves behind (rate x priced write
+    / capacity); recovery may take up to twice what the calibrated models
+    predict for the job at its current CI.  The job runs at 1.5x the
+    calibrated full write: the profiled grid spans 1.5x-6x of it."""
+    import numpy as np
+    from repro_torch.config import CheckpointPlan, KhaosConfig, replace
+    from repro_torch.core import KhaosRuntime, optimize_plan
+    from repro_torch.core.ci_optimizer import _variant_predictions
+    from repro_torch.data.stream import record_workload
+    from repro_torch.sim import SimCostModel, SimDeployment
+
+    tr, plan = run.tr, run.tr.ckpt.plan
+    int8 = replace(plan, delta_codec="int8")
+    step_s = run.step_s()
+    capacity = run.tcfg.batch / step_s
+    cost = SimCostModel.from_calibration(
+        on_job_clock(cal, run.tcfg.time_scale), capacity_eps=capacity,
+        base_latency_s=step_s,
+        detect_s=run.tcfg.detect_s, restart_s=run.tcfg.restart_s)
+    cis = [f * cost.ckpt_duration_s for f in CI_GRID]
+    recording = record_workload(run.schedule, duration=STREAM_PERIOD_S,
+                                seed=0)
+    priced_lossless = cost.write_duration("delta", "local", "lossless",
+                                          "device")
+    l_const = float(recording.counts.mean()) * priced_lossless / capacity
+    rt = KhaosRuntime(KhaosConfig(latency_constraint=l_const,
+                                  optimization_period=KHAOS_PERIOD_S,
+                                  ci_min=cis[0], ci_max=cis[-1],
+                                  num_failure_points=2,
+                                  num_configs=len(cis)),
+                      cost=cost, plan_variants=[plan, int8])
+    t0 = time.monotonic()
+    rt.record_steady_state(recording)
+    rt.run_profiling(lambda ci: SimDeployment(ci, recording, cost),
+                     ci_values=cis)
+    info = rt.phase_log[-1].info
+    log(f"khaos phases 1-2: {rt.phase_sequence()}, {info['cells']} cells, "
+        f"M_L error {info['m_l_pct_error']:.4f}, M_R error "
+        f"{info['m_r_pct_error']:.4f} ({time.monotonic() - t0:.1f} s); "
+        f"latencies {rt.profile.latencies.tolist()}, recoveries "
+        f"{rt.profile.recoveries.tolist()}")
+
+    # Phase 3: the job runs at cis[0]; its recovery priced there by the
+    # optimizer's own re-pricing (on the optimizer's CI grid)
+    tr_now = float(recording.counts.mean())
+    _, recs, _ = _variant_predictions(rt.m_l, rt.m_r, cost, [plan],
+                                      np.linspace(cis[0], cis[-1], 128),
+                                      tr_now, CheckpointPlan())
+    priced_recovery = float(recs[0][0])
+    check(priced_recovery > 0, f"the fitted models price the job's recovery "
+                               f"at {priced_recovery} s")
+    rt.cfg = replace(rt.cfg, recovery_constraint=2.0 * priced_recovery)
+    log(f"khaos constraints: latency {l_const:.4f} s (rate "
+        f"{tr_now:.3f}/s x priced lossless delta {priced_lossless:.3f} s / "
+        f"capacity {capacity:.3f}/s), recovery {rt.cfg.recovery_constraint:.3f}"
+        f" s (2 x {priced_recovery:.3f} s priced at CI {cis[0]:.3f} s)")
+    run.job.reconfigure(cis[0])
+    # the recovered job restarts its checkpoint timer, as the simulated
+    # job does on restart: the next trigger is one CI after the restore
+    tr.policy.reset(tr.t)
+    rt.attach(run.job)
+    decisions = []
+
+    def on_step(info):
+        d = rt.step()
+        if d is not None:
+            decisions.append(d)
+            log(f"  decision at t={d.t:.3f}: {d.kind}, latency "
+                f"{d.latency:.4f}, predicted recovery "
+                f"{d.predicted_recovery:.4f}")
+            if d.new_plan is not None:
+                raise _StopRun
+    try:
+        # ends before the job's first trigger under its CI
+        tr.run(duration_s=cis[0] - 1.0, on_second=on_step)
+    except _StopRun:
+        pass
+    switch = next((d for d in decisions if d.new_plan is not None), None)
+    if switch is None or switch.kind != "reconfigure" or \
+            switch.new_plan.delta_codec != "int8":
+        ctl = rt.controller
+        res = optimize_plan(ctl.m_l, ctl.m_r, tr_now, l_const,
+                            rt.cfg.recovery_constraint, ctl.rescaler.p,
+                            cis[0], cis[-1], cost, variants=[plan, int8])
+        for c in res.candidates:
+            log(f"  candidate {c.plan.name}: feasible {c.feasible}, ci "
+                f"{c.ci}, q_l {c.q_l}, q_r {c.q_r}, objective "
+                f"{c.objective}, overhead {c.overhead}")
+        raise SmokeFailure(f"Khaos did not switch the trainer to int8: "
+                           f"{decisions}")
+    check(rt.phase_sequence() == ["steady_state", "profiled", "optimizing"],
+          f"phase order {rt.phase_sequence()}")
+    check(tr.ckpt.plan.name == switch.new_plan.name,
+          f"trainer runs {tr.ckpt.plan.name}, the Decision said "
+          f"{switch.new_plan.name}")
+    return {"decision": {"t": switch.t, "kind": switch.kind,
+                         "latency": switch.latency,
+                         "tr_avg": switch.tr_avg,
+                         "predicted_recovery": switch.predicted_recovery,
+                         "new_ci": switch.new_ci,
+                         "new_plan": switch.new_plan.name,
+                         "p": rt.controller.rescaler.p},
+            "constraints": {"latency": l_const,
+                            "recovery": rt.cfg.recovery_constraint},
+            "ci_grid": cis, "phases": rt.phase_sequence(),
+            "decisions": [d.kind for d in decisions],
+            "capacity_eps": capacity, "step_s": step_s,
+            "m_l_pct_error": info["m_l_pct_error"],
+            "m_r_pct_error": info["m_r_pct_error"]}
 
 
 # ---------------------------------------------------------------------------
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print("chip_smoke.py needs the repro_torch package under src/ "
-              "beside it", file=sys.stderr)
+    if not (SRC / "repro_torch").is_dir() or not BENCH.is_file():
+        print("chip_smoke.py needs the repro_torch package under src/ and "
+              "benchmarks/torch_bench_ckpt.py beside it", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -457,49 +854,94 @@ def main() -> int:
     lib = K.build()
     log(f"build: {lib.name} in {time.monotonic() - t0:.2f} s")
 
+    cfg = replace(get_config("yi-6b"), num_layers=2)
     t0 = time.monotonic()
     results = kernel_phase(dev, hbm, flops)
+    results.update(per_leaf_phase(dev, hbm, flops, _state_leaves(cfg)))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
 
-    cfg = replace(get_config("yi-6b"), num_layers=2)
+    # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    device_section = calibration_phase(cfg, dev)
+    calib_launches = ops.launch_counts()
+    log(f"calibration phase: {time.monotonic() - t0:.1f} s, device memory "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+        f"{calib_launches}")
+    print(json.dumps({"calibration_device": device_section}))
+    for name in CALIBRATION_KERNELS:
+        check(calib_launches[name] > 0,
+              f"{name} was not launched on the calibration path")
+
+    # -- trainer path: lossless half, Khaos, int8 half --------------------
     log(f"trainer: {cfg.name} widths, num_layers {cfg.num_layers}, "
         f"{cfg.param_count():,} params, dtype {cfg.dtype}, params "
         f"{cfg.param_dtype}")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     t0 = time.monotonic()
     try:
-        info = trainer_phase(cfg, dev, CKPT_DIR, batch=2, seq_len=1024)
+        # the counts are set to 0 before each trainer segment and read
+        # after it; the bench run between them (its own states) is not
+        # the trainer path
+        ops.reset_launch_counts()
+        run = TrainerRun(cfg, dev, CKPT_DIR / "trainer", batch=2,
+                         seq_len=1024)
+        run.lossless_half()
+        launches = ops.launch_counts()
+        log(f"lossless half: {time.monotonic() - t0:.1f} s")
+        t1 = time.monotonic()
+        cal, sources = calibration_artifact(run, device_section,
+                                            CKPT_DIR / "bench", dev)
+        log(f"calibration artifact ({time.monotonic() - t1:.1f} s): "
+            f"{json.dumps({k: v for k, v in cal.items() if k != 'plans'})}")
+        log(f"calibration sources (reduced): {json.dumps(sources)}")
+        n_before = len(run.ckpt_events())
+        ops.reset_launch_counts()
+        t1 = time.monotonic()
+        khaos = khaos_phases(run, cal)
+        log(f"khaos: {time.monotonic() - t1:.1f} s")
+        print(json.dumps({"khaos": khaos}))
+        run.int8_half(n_before)
+        launches = {k: v + ops.launch_counts()[k]
+                    for k, v in launches.items()}
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    log(f"trainer phase: {time.monotonic() - t0:.1f} s")
-    launches = ops.launch_counts()
+    log(f"trainer path: {time.monotonic() - t0:.1f} s")
     peak = torch.cuda.max_memory_allocated()
-    for e in info["events"]:
+    summary = run.tr.summary()
+    for e in run.ckpt_events():
         log("  " + json.dumps({k: e.get(k) for k in (
             "event", "kind", "step", "blocking_s", "bytes_on_link",
             "bytes_written", "level", "duration_s")}))
-    log(f"trainer: {len(info['losses'])} steps, last step "
-        f"{info['step_s']:.3f} s, device memory peak {peak / 1e9:.2f} GB, "
-        f"bytes written {info['ckpt_stats']['bytes_written']}, "
-        f"bytes on link {info['ckpt_stats']['bytes_on_link']}")
+    check(all(math.isfinite(x) for x in run.tr.losses), "non-finite loss")
+    log(f"trainer: {len(run.tr.losses)} steps, median step "
+        f"{run.step_s():.3f} s, device memory peak {peak / 1e9:.2f} GB, "
+        f"bytes written {summary['ckpt_stats']['bytes_written']}, "
+        f"bytes on link {summary['ckpt_stats']['bytes_on_link']}")
     log(f"kernel launches on the trainer path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the trainer path")
+    for name in KERNELS:
+        if name not in CALIBRATION_KERNELS:
+            check(launches[name] > 0,
+                  f"{name} was not launched on the trainer path")
 
     rows = []
     for name, (replaces, _, _) in KERNELS.items():
         r = results[name]
+        n = (calib_launches if name in CALIBRATION_KERNELS
+             else launches)[name]
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
                      "mismatches": r["mismatches"],
-                     "elements": r["elements"]})
+                     "elements": r["elements"],
+                     "path": ("calibration" if name in CALIBRATION_KERNELS
+                              else "trainer")})
     log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null: no "
-        f"single PyTorch call computes any of these four functions")
+        f"single PyTorch call computes any of these six functions")
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,14 @@ surviving levels newest-first.
 """
 from __future__ import annotations
 
+#: failure kind -> minimum level that survives it at the default
+#: replication factor k=1 (``derived_coverage(1)``; ``sim.costmodel.
+#: SimCostModel`` asserts the two agree at construction)
+LEVEL_COVERAGE = {
+    "task": "memory",
+    "node": "local",
+    "cluster": "remote",
+}
 _LEVELS = ("memory", "local", "remote")
 _KINDS = ("task", "node", "cluster")
 
@@ -42,6 +50,16 @@ def level_survives(level: str, failure_kind: str,
     if failure_kind == "task":
         return True
     return failure_kind == "node" and replication_factor >= 1
+
+
+def derived_coverage(replication_factor: int = 1) -> dict[str, str]:
+    """failure kind -> minimum surviving level, derived from
+    ``level_survives`` at the given replication factor.
+    ``derived_coverage(1) == LEVEL_COVERAGE``;
+    ``derived_coverage(0)["node"] == "remote"``."""
+    return {kind: next(l for l in _LEVELS
+                       if level_survives(l, kind, replication_factor))
+            for kind in _KINDS}
 
 
 def allowed_levels(failure_kind: str, replication_factor: int = 1

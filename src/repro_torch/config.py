@@ -1,5 +1,6 @@
 """Configuration dataclasses of the port: a subset copy of the JAX
-package's ``repro.config`` (model, shape, optimizer and checkpoint plan).
+package's ``repro.config`` (model, shape, mesh, optimizer, checkpoint plan
+and the Khaos knobs).
 
 Defaults are identical to the reference, so plan names, model widths and
 optimizer hyper-parameters mean the same thing in both frameworks.
@@ -177,6 +178,31 @@ class ShapeConfig:
 
 
 # ---------------------------------------------------------------------------
+# Mesh / distribution
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod else (self.data, self.model)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
+
+
+# ---------------------------------------------------------------------------
 # Training / checkpoint / Khaos controller
 # ---------------------------------------------------------------------------
 
@@ -314,6 +340,41 @@ class CheckpointPlan:
             parts.append(f"rep{self.replication_factor}")
         return "-".join(parts)
 
+
+
+@dataclass(frozen=True)
+class KhaosConfig:
+    """The paper's knobs (§III)."""
+    # Phase 1
+    record_seconds: float = 600.0
+    smoothing_window: int = 30          # averaging window for W(t)
+    num_failure_points: int = 5         # m
+    failure_point_mode: str = "throughput"   # throughput (prose) | time (Eq.4 literal)
+    # Phase 2
+    ci_min: float = 10.0
+    ci_max: float = 120.0
+    num_configs: int = 6                # z = |C|
+    profile_margin_seconds: float = 90.0  # replay window around each injection
+    # Phase 3
+    latency_constraint: float = 1.0     # l_const (seconds, end-to-end)
+    recovery_constraint: float = 240.0  # r_const (seconds)
+    optimization_period: float = 60.0   # seconds between optimization cycles
+    forecast_horizon: int = 5           # multi-step-ahead TSF steps
+    defer_drop_fraction: float = 0.10   # ">10% decrease -> defer"
+    proactive: bool = False             # pre-act on forecasted violations:
+                                        # when the TSF predicts the rate
+                                        # rising enough to break a QoS
+                                        # constraint within the horizon,
+                                        # re-optimize at the PREDICTED peak
+                                        # instead of waiting for the breach
+    proactive_rise_fraction: float = 0.05   # minimum forecasted rise
+                                        # (fraction of the current rate)
+                                        # before pre-acting — symmetric
+                                        # guard to defer_drop_fraction
+    rescale_history: int = 5            # k pairwise fractional differences for p
+    reconfig_cooldown: float = 120.0
+    model_degree: int = 2               # polynomial degree for M_L / M_R
+    ridge_lambda: float = 1e-3
 
 
 def replace(cfg, **kw):

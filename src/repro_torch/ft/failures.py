@@ -1,5 +1,5 @@
-"""Failure vocabulary of the port: the parts the live trainer uses,
-copied from the JAX package's ``repro.ft.failures``.
+"""Failure taxonomy and injection (the chaos in Khaos), copied from the
+JAX package's ``repro.ft.failures``.
 
 **Crashes** (``CRASH_KINDS`` — task/node/cluster) kill the job: detect →
 restart → restore from the newest surviving checkpoint level → offset
@@ -9,10 +9,18 @@ failures — ``net_delay`` (directional: ``to_source`` inflates latency,
 time inflated for a window) and ``backpressure`` (triggers held past their
 cadence slot).  Both families share one closed ``KINDS`` set and every
 constructor validates against it.
+
+* ``FailureModel`` samples failures from exponential (Poisson process)
+  or Weibull inter-arrival distributions (background failures and MTBF
+  estimates for the Young/Daly baseline).
+* ``FailureInjector`` implements the paper's worst-case injection: a
+  requested injection time is snapped to just before the *next
+  checkpoint completes* (maximizing lost work, §III-C).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -82,3 +90,118 @@ class InjectedFailure(RuntimeError):
         self.kind = kind
         self.host = host
         self.t = t
+
+
+@dataclass
+class FailureModel:
+    mtbf_node_s: float = 86_400.0      # per-node MTBF
+    num_nodes: int = 64
+    distribution: str = "exponential"  # exponential | weibull
+    weibull_shape: float = 0.7         # <1: infant mortality
+    seed: int = 0
+    kinds: tuple = (("task", 0.3), ("node", 0.65), ("cluster", 0.05))
+
+    def __post_init__(self) -> None:
+        for kind, _w in self.kinds:
+            if kind not in KINDS:
+                raise ValueError(f"unknown failure kind {kind!r}; expected "
+                                 f"one of {KINDS}")
+        self._rng = np.random.default_rng(self.seed)
+
+    @property
+    def cluster_mtbf_s(self) -> float:
+        return self.mtbf_node_s / max(1, self.num_nodes)
+
+    def next_failure_after(self, t: float) -> float:
+        scale = self.cluster_mtbf_s
+        if self.distribution == "exponential":
+            dt = self._rng.exponential(scale)
+        else:
+            k = self.weibull_shape
+            lam = scale / math.gamma(1 + 1 / k)   # mean matches the MTBF
+            dt = lam * self._rng.weibull(k)
+        return t + float(max(dt, 1.0))
+
+    def sample_kind(self) -> str:
+        kinds, probs = zip(*self.kinds)
+        return str(self._rng.choice(kinds, p=probs))
+
+    def sample_host(self) -> int:
+        return int(self._rng.integers(self.num_nodes))
+
+
+@dataclass
+class FailureInjector:
+    """Deterministic injection scheduler for profiling and baselines.
+
+    Beyond the paper's worst-case *timing* (§III-C), the injector is
+    placement-aware: ``worst_case_failure`` targets a specific HOST (so
+    the checkpoint plane's host->shard placement decides exactly which
+    files die), and ``peer_loss`` composes the worst case for k=1
+    replication — the host AND one of its ring replica peers inside the
+    same window, leaving some shard with no surviving local copy."""
+    epsilon_s: float = 1.0
+    log: list = field(default_factory=list)
+
+    def worst_case_time(self, requested_t: float, last_ckpt_t: float,
+                        interval_s: float, ckpt_cost_s: float) -> float:
+        """Paper §III-C: inject just before the next checkpoint *completes*.
+
+        The next checkpoint after ``requested_t`` starts at the next
+        multiple of the interval and completes ``ckpt_cost_s`` later; we
+        inject epsilon before that completion so the job replays a full
+        interval's worth of work.
+        """
+        if interval_s <= 0:
+            return requested_t
+        k = np.ceil(max(requested_t - last_ckpt_t, 0.0) / interval_s)
+        next_start = last_ckpt_t + k * interval_s
+        if next_start < requested_t:
+            next_start += interval_s
+        completion = next_start + ckpt_cost_s
+        t = max(requested_t, completion - self.epsilon_s)
+        self.log.append({"requested": requested_t, "injected": t})
+        return float(t)
+
+    def worst_case_failure(self, requested_t: float, last_ckpt_t: float,
+                           interval_s: float, ckpt_cost_s: float,
+                           kind: str = "node", host: int = 0
+                           ) -> InjectedFailure:
+        """Host-targeted worst-case injection: the §III-C timing plus a
+        placement — ``host``'s node-local files (its primary shards and
+        the replicas it held) die with it, so the restore that follows
+        exercises the degraded-partial path, not a free local read."""
+        if kind not in CRASH_KINDS:
+            raise ValueError(f"unknown crash kind {kind!r}; expected one of "
+                             f"{CRASH_KINDS}")
+        t = self.worst_case_time(requested_t, last_ckpt_t, interval_s,
+                                 ckpt_cost_s)
+        self.log[-1].update({"kind": kind, "host": host})
+        return InjectedFailure(kind=kind, host=host, t=t)
+
+    def peer_loss(self, requested_t: float, last_ckpt_t: float,
+                  interval_s: float, ckpt_cost_s: float, host: int,
+                  num_hosts: int, replication_factor: int = 1,
+                  window_s: float = 5.0) -> list[InjectedFailure]:
+        """The k=1 worst case: kill ``host`` at the worst-case time AND
+        its first ring replica peer (the host holding ``host``'s shard
+        copies) ``window_s`` later — inside the window no new checkpoint
+        can complete, so the dead host's shards lose every local copy
+        and recovery must fall back per-shard to the remote level.
+        Returns the two failures in injection order."""
+        from repro_torch.checkpoint.replication import ring_peers
+
+        first = self.worst_case_failure(requested_t, last_ckpt_t,
+                                        interval_s, ckpt_cost_s,
+                                        kind="node", host=host)
+        peers = ring_peers(host, num_hosts, max(1, replication_factor))
+        if not peers:
+            return [first]
+        window_s = min(window_s, max(interval_s - 2 * self.epsilon_s,
+                                     self.epsilon_s))
+        second = InjectedFailure(kind="node", host=peers[0],
+                                 t=first.t + window_s)
+        self.log.append({"requested": first.t, "injected": second.t,
+                         "kind": "node", "host": peers[0],
+                         "scenario": "peer_loss"})
+        return [first, second]

@@ -1,17 +1,29 @@
 // Delta-codec kernels of the checkpoint plane, CUDA C++ for sm_90a.
 //
-// Four kernels, one per TPU Pallas kernel of the JAX package's
-// kernels/ckpt_delta/kernel.py that the device-placed delta path runs:
+// Six kernels, one per TPU Pallas kernel of the JAX package's
+// kernels/ckpt_delta/kernel.py:
 //
 //   flat_lossless_encode  <- flat_lossless_encode_fwd (_flat_lossless_encode_kernel)
 //   flat_int8_encode      <- flat_delta_encode_fwd    (_flat_encode_kernel)
 //   lossless_decode       <- lossless_decode_fwd      (_lossless_decode_kernel)
 //   delta_decode          <- delta_decode_fwd         (_decode_kernel)
+//   lossless_encode       <- lossless_encode_fwd      (_lossless_encode_kernel)
+//   delta_encode          <- delta_encode_fwd         (_encode_kernel)
+//
+// The first four run on the device-placed delta path of the trainer (one
+// fused launch over the packed state); the last two are the per-leaf
+// encodes (one launch per leaf, zero-padded to whole groups by the
+// wrapper) that the checkpoint calibration times as the pre-flat
+// baseline.  Each per-leaf encode is its flat twin without the per-group
+// change statistics: one template on ``kStats`` serves both.
 //
 // What bounds them on an H100: bytes.  Each element is touched once and
 // costs one or two float operations, so every kernel is a streaming pass
 // that can at best run at the HBM rate (16 B/element for the lossless
-// encode and decode, ~9 B for the int8 encode, ~5 B for the int8 decode).
+// encodes and decode, ~9 B for the int8 encodes, ~5 B for the int8
+// decode).  For the per-leaf encodes the launch itself adds a few
+// microseconds per leaf, which is the overhead they stand for; they are
+// deliberately not fused.
 // The design serves that: one block of 256 threads per 1024-element group,
 // each thread moving its 4 elements as ONE 16-byte vector (coalesced,
 // neighbouring threads on neighbouring addresses), per-group reductions in
@@ -82,15 +94,17 @@ __device__ __forceinline__ int changed(float a, float b) {
 }
 
 // ---------------------------------------------------------------------------
-// #1 lossless encode: d = new - base, r = bits(new) ^ bits(base + d),
-// per group: elements whose bits changed, nonzero residual words
+// #1 / #5 lossless encode: d = new - base, r = bits(new) ^ bits(base + d);
+// with kStats (#1), per group: elements whose bits changed, nonzero
+// residual words
 // ---------------------------------------------------------------------------
+template <bool kStats>
 __global__ void __launch_bounds__(THREADS)
-flat_lossless_encode_kernel(const float4* __restrict__ nw,
-                            const float4* __restrict__ bs,
-                            float4* __restrict__ d, uint4* __restrict__ r,
-                            int* __restrict__ group_changed,
-                            int* __restrict__ group_rnnz) {
+lossless_encode_kernel(const float4* __restrict__ nw,
+                       const float4* __restrict__ bs,
+                       float4* __restrict__ d, uint4* __restrict__ r,
+                       int* __restrict__ group_changed,
+                       int* __restrict__ group_rnnz) {
     __shared__ int s_changed[WARPS];
     __shared__ int s_rnnz[WARPS];
     const size_t g = blockIdx.x;
@@ -109,20 +123,24 @@ flat_lossless_encode_kernel(const float4* __restrict__ nw,
     rr.w = __float_as_uint(n.w) ^ __float_as_uint(__fadd_rn(b.w, dd.w));
     d[i] = dd;
     r[i] = rr;
-    const int c = changed(n.x, b.x) + changed(n.y, b.y)
-                + changed(n.z, b.z) + changed(n.w, b.w);
-    const int z = (rr.x != 0u) + (rr.y != 0u) + (rr.z != 0u) + (rr.w != 0u);
-    const int ct = block_sum(c, s_changed);
-    const int zt = block_sum(z, s_rnnz);
-    if (threadIdx.x == 0) {
-        group_changed[g] = ct;
-        group_rnnz[g] = zt;
+    if constexpr (kStats) {
+        const int c = changed(n.x, b.x) + changed(n.y, b.y)
+                    + changed(n.z, b.z) + changed(n.w, b.w);
+        const int z = (rr.x != 0u) + (rr.y != 0u) + (rr.z != 0u)
+                    + (rr.w != 0u);
+        const int ct = block_sum(c, s_changed);
+        const int zt = block_sum(z, s_rnnz);
+        if (threadIdx.x == 0) {
+            group_changed[g] = ct;
+            group_rnnz[g] = zt;
+        }
     }
 }
 
 // ---------------------------------------------------------------------------
-// #2 int8 encode: d = new - base, scale = max(max|d|, 1e-12) / 127,
-// q = clip(rint(d / scale), -127, 127), per-group changed count
+// #2 / #6 int8 encode: d = new - base, scale = max(max|d|, 1e-12) / 127,
+// q = clip(rint(d / scale), -127, 127); with kStats (#2), the per-group
+// changed count
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ signed char quantize(float d, float scale) {
     float q = rintf(__fdiv_rn(d, scale));
@@ -130,11 +148,12 @@ __device__ __forceinline__ signed char quantize(float d, float scale) {
     return static_cast<signed char>(static_cast<int>(q));
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(THREADS)
-flat_int8_encode_kernel(const float4* __restrict__ nw,
-                        const float4* __restrict__ bs,
-                        char4* __restrict__ q, float* __restrict__ scales,
-                        int* __restrict__ group_changed) {
+int8_encode_kernel(const float4* __restrict__ nw,
+                   const float4* __restrict__ bs,
+                   char4* __restrict__ q, float* __restrict__ scales,
+                   int* __restrict__ group_changed) {
     __shared__ float s_amax[WARPS];
     __shared__ int s_changed[WARPS];
     const size_t g = blockIdx.x;
@@ -153,13 +172,13 @@ flat_int8_encode_kernel(const float4* __restrict__ nw,
     qq.z = quantize(dz, scale);
     qq.w = quantize(dw, scale);
     q[i] = qq;
-    const int c = changed(n.x, b.x) + changed(n.y, b.y)
-                + changed(n.z, b.z) + changed(n.w, b.w);
-    const int ct = block_sum(c, s_changed);
-    if (threadIdx.x == 0) {
-        scales[g] = scale;
-        group_changed[g] = ct;
+    if constexpr (kStats) {
+        const int c = changed(n.x, b.x) + changed(n.y, b.y)
+                    + changed(n.z, b.z) + changed(n.w, b.w);
+        const int ct = block_sum(c, s_changed);
+        if (threadIdx.x == 0) group_changed[g] = ct;
     }
+    if (threadIdx.x == 0) scales[g] = scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -212,9 +231,9 @@ int ckpt_flat_lossless_encode(const void* nw, const void* bs, void* d,
                               void* group_rnnz, int64_t num_groups,
                               void* stream) {
     if (num_groups > 0) {
-        flat_lossless_encode_kernel<<<static_cast<unsigned>(num_groups),
-                                      THREADS, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+        lossless_encode_kernel<true><<<static_cast<unsigned>(num_groups),
+                                       THREADS, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nw), static_cast<const float4*>(bs),
             static_cast<float4*>(d), static_cast<uint4*>(r),
             static_cast<int*>(group_changed), static_cast<int*>(group_rnnz));
@@ -226,9 +245,9 @@ int ckpt_flat_int8_encode(const void* nw, const void* bs, void* q,
                           void* scales, void* group_changed,
                           int64_t num_groups, void* stream) {
     if (num_groups > 0) {
-        flat_int8_encode_kernel<<<static_cast<unsigned>(num_groups),
-                                  THREADS, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+        int8_encode_kernel<true><<<static_cast<unsigned>(num_groups),
+                                   THREADS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nw), static_cast<const float4*>(bs),
             static_cast<char4*>(q), static_cast<float*>(scales),
             static_cast<int*>(group_changed));
@@ -254,6 +273,31 @@ int ckpt_delta_decode(const void* q, const void* scales, void* d,
                               static_cast<cudaStream_t>(stream)>>>(
             static_cast<const char4*>(q), static_cast<const float*>(scales),
             static_cast<float4*>(d));
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+int ckpt_lossless_encode(const void* nw, const void* bs, void* d, void* r,
+                         int64_t num_groups, void* stream) {
+    if (num_groups > 0) {
+        lossless_encode_kernel<false><<<static_cast<unsigned>(num_groups),
+                                        THREADS, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(nw), static_cast<const float4*>(bs),
+            static_cast<float4*>(d), static_cast<uint4*>(r), nullptr,
+            nullptr);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+int ckpt_int8_encode(const void* nw, const void* bs, void* q, void* scales,
+                     int64_t num_groups, void* stream) {
+    if (num_groups > 0) {
+        int8_encode_kernel<false><<<static_cast<unsigned>(num_groups),
+                                    THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(nw), static_cast<const float4*>(bs),
+            static_cast<char4*>(q), static_cast<float*>(scales), nullptr);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -87,6 +87,8 @@ def _load() -> ctypes.CDLL:
                 "ckpt_flat_int8_encode": [vp] * 5 + [i64, vp],
                 "ckpt_lossless_decode": [vp] * 4 + [i64, vp],
                 "ckpt_delta_decode": [vp] * 3 + [i64, vp],
+                "ckpt_lossless_encode": [vp] * 4 + [i64, vp],
+                "ckpt_int8_encode": [vp] * 4 + [i64, vp],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -192,3 +194,33 @@ def delta_decode(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                                          _stream(q))
     _raise_on("delta_decode", code)
     return d
+
+
+def lossless_encode(new: torch.Tensor, base: torch.Tensor):
+    """Kernel #5, the per-leaf lossless encode: (d f32, r int32), no
+    statistics."""
+    ng = _groups_of(new)
+    _check("new", new, torch.float32)
+    _check("base", base, torch.float32, new.numel())
+    d = torch.empty_like(new)
+    r = torch.empty(new.numel(), dtype=torch.int32, device=new.device)
+    with torch.cuda.device(new.device):
+        code = _load().ckpt_lossless_encode(
+            _ptr(new), _ptr(base), _ptr(d), _ptr(r), ng, _stream(new))
+    _raise_on("lossless_encode", code)
+    return d.reshape(-1), r
+
+
+def int8_encode(new: torch.Tensor, base: torch.Tensor):
+    """Kernel #6, the per-leaf int8 encode: (q int8, scale f32 per group),
+    no statistics."""
+    ng = _groups_of(new)
+    _check("new", new, torch.float32)
+    _check("base", base, torch.float32, new.numel())
+    q = torch.empty(new.numel(), dtype=torch.int8, device=new.device)
+    s = torch.empty(ng, dtype=torch.float32, device=new.device)
+    with torch.cuda.device(new.device):
+        code = _load().ckpt_int8_encode(_ptr(new), _ptr(base), _ptr(q),
+                                        _ptr(s), ng, _stream(new))
+    _raise_on("delta_encode", code)
+    return q, s

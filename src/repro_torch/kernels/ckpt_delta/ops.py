@@ -15,7 +15,15 @@ through the kernels (``launch_counts``/``reset_launch_counts``).
     packed buffer and reduce the per-group change statistics to per-leaf
     counts with ``index_add_`` over the layout's group->leaf map;
   * ``lossless_decode``/``delta_decode`` invert them (any length: inputs
-    are zero-padded to whole groups and the output sliced back).
+    are zero-padded to whole groups and the output sliced back);
+  * ``lossless_encode``/``delta_encode`` are the PER-LEAF encodes: one
+    launch per tensor of any shape, flattened and zero-padded to whole
+    groups, without statistics.  ``lossless_encode_leaf``/
+    ``int8_encode_leaf`` add the leaf's ``changed`` flag (and the
+    residual's nonzero count) as plain torch reductions outside the
+    kernel, as the reference computes them outside its ``pallas_call``.
+    The checkpoint calibration times them as the pre-flat baseline
+    (``per_leaf_encode_s``).
 """
 from __future__ import annotations
 
@@ -94,8 +102,55 @@ def delta_decode(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def lossless_encode(new: torch.Tensor, base: torch.Tensor):
+    """Per-leaf lossless encode of one tensor pair of any shape: (d f32,
+    r int32 — the u32 residual's bits), both GROUP-padded (zero padding
+    encodes to zero delta and zero residual)."""
+    nf = pad_to_groups(new.to(torch.float32))
+    bf = pad_to_groups(base.to(torch.float32))
+    impl = _impl(nf)
+    d, r = impl.lossless_encode(nf, bf)
+    if impl is _k:
+        lossless_encode.launches += 1
+    return d, r
+
+
+def delta_encode(new: torch.Tensor, base: torch.Tensor):
+    """Per-leaf int8 encode of one tensor pair of any shape: (q int8
+    GROUP-padded, per-group f32 scales)."""
+    nf = pad_to_groups(new.to(torch.float32))
+    bf = pad_to_groups(base.to(torch.float32))
+    impl = _impl(nf)
+    q, s = impl.int8_encode(nf, bf)
+    if impl is _k:
+        delta_encode.launches += 1
+    return q, s
+
+
+def _bits_changed(new: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """True iff any f32 bit pattern differs (0-d bool, on the device)."""
+    nf = new.reshape(-1).to(torch.float32)
+    bf = base.reshape(-1).to(torch.float32)
+    return (nf.view(torch.int32) != bf.view(torch.int32)).any()
+
+
+def lossless_encode_leaf(new: torch.Tensor, base: torch.Tensor):
+    """One leaf's lossless encode: (d, r — GROUP-padded —, changed, resid_nnz)
+    where ``changed`` says any bit differs and ``resid_nnz`` counts the
+    nonzero residual words (both 0-d tensors on the input's device)."""
+    d, r = lossless_encode(new, base)
+    return d, r, _bits_changed(new, base), torch.count_nonzero(r)
+
+
+def int8_encode_leaf(new: torch.Tensor, base: torch.Tensor):
+    """One leaf's int8 encode: (q GROUP-padded, scales, changed).  The
+    worst-case error per element is half a step: max|delta_group| / 254."""
+    q, s = delta_encode(new, base)
+    return q, s, _bits_changed(new, base)
+
+
 KERNEL_WRAPPERS = (flat_lossless_encode, flat_int8_encode, lossless_decode,
-                   delta_decode)
+                   delta_decode, lossless_encode, delta_encode)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 
@@ -110,5 +165,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["GROUP", "pack_flat", "flat_lossless_encode", "flat_int8_encode",
-           "lossless_decode", "delta_decode", "launch_counts",
-           "reset_launch_counts"]
+           "lossless_decode", "delta_decode", "lossless_encode",
+           "delta_encode", "lossless_encode_leaf", "int8_encode_leaf",
+           "launch_counts", "reset_launch_counts"]

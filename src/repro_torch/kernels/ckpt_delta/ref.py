@@ -54,36 +54,50 @@ def pack_flat(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
                       for leaf in leaves])
 
 
-def lossless_encode_groups(new: torch.Tensor, base: torch.Tensor):
-    """(d f32, r int32, group_changed i32, group_rnnz i32) over a
-    GROUP-aligned f32 pair: d = new - base, r = bits(new) ^ bits(base + d),
-    and per group the count of elements whose bits changed and the count
-    of nonzero residual words."""
+def lossless_encode(new: torch.Tensor, base: torch.Tensor):
+    """(d f32, r int32) over a GROUP-aligned f32 pair: d = new - base,
+    r = bits(new) ^ bits(base + d) (kernel #5)."""
     new = new.reshape(-1)
     base = base.reshape(-1)
+    _groups(new)
     d = new - base
     r = (base + d).view(torch.int32)   # what decode reconstructs ...
     r ^= new.view(torch.int32)         # ... XOR the true bits, in place
-    gc = _group_count(new.view(torch.int32) != base.view(torch.int32))
+    return d, r
+
+
+def lossless_encode_groups(new: torch.Tensor, base: torch.Tensor):
+    """(d f32, r int32, group_changed i32, group_rnnz i32): the lossless
+    encode plus, per group, the count of elements whose bits changed and
+    the count of nonzero residual words (kernel #1)."""
+    d, r = lossless_encode(new, base)
+    gc = _group_count(new.reshape(-1).view(torch.int32)
+                      != base.reshape(-1).view(torch.int32))
     gz = _group_count(r != 0)
     return d, r, gc, gz
 
 
-def int8_encode_groups(new: torch.Tensor, base: torch.Tensor):
-    """(q int8, scale f32 per group, group_changed i32): d = new - base,
-    scale = max(max|d|, 1e-12) / 127 per group, q = clip(round_half_even(
-    d / scale), -127, 127)."""
-    new = new.reshape(-1)
-    base = base.reshape(-1)
-    d = _groups(new - base)
+def int8_encode(new: torch.Tensor, base: torch.Tensor):
+    """(q int8, scale f32 per group): d = new - base, scale = max(max|d|,
+    1e-12) / 127 per group, q = clip(round_half_even(d / scale), -127,
+    127) (kernel #6)."""
+    d = _groups(new.reshape(-1) - base.reshape(-1))
     amax = d.abs().amax(dim=1)
     # divide by a 0-d tensor ON THE SAME DEVICE: with a Python-scalar
     # divisor PyTorch's CUDA division multiplies by the reciprocal, which
     # is not the IEEE quotient the reference (and the kernel) computes
     scale = torch.clamp_min(amax, SCALE_FLOOR) / amax.new_tensor(127.0)
     q = torch.round(d / scale[:, None]).clamp_(-127, 127).to(torch.int8)
-    gc = _group_count(new.view(torch.int32) != base.view(torch.int32))
-    return q.reshape(-1), scale, gc
+    return q.reshape(-1), scale
+
+
+def int8_encode_groups(new: torch.Tensor, base: torch.Tensor):
+    """(q int8, scale f32 per group, group_changed i32): the int8 encode
+    plus the per-group changed count (kernel #2)."""
+    q, scale = int8_encode(new, base)
+    gc = _group_count(new.reshape(-1).view(torch.int32)
+                      != base.reshape(-1).view(torch.int32))
+    return q, scale, gc
 
 
 def lossless_decode(base: torch.Tensor, d: torch.Tensor,

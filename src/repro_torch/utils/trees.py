@@ -127,6 +127,18 @@ def to_tensor(x: Any, device: Any) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
+def tree_bytes(tree: Any) -> int:
+    """Total bytes of a tree's tensor or array leaves (8 for any other
+    leaf, as the reference counts)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
+            total += int(np.prod(tuple(leaf.shape))) * np_dtype(leaf).itemsize
+        else:
+            total += 8
+    return total
+
+
 def resolve_device(device: Optional[Any]) -> torch.device:
     """The port's device rule: the CUDA device unless the caller asks for
     another one.  With no CUDA device and no explicit choice this raises

@@ -12,6 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+#: the port's benchmarks: they import the port, never the JAX package
+PORT_BENCHES = sorted((ROOT / "benchmarks").glob("torch_*.py"))
 
 
 def _port_modules() -> list[str]:
@@ -28,9 +30,17 @@ def _port_modules() -> list[str]:
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.runtime.trainer" in mods
-    code = ("import importlib, sys\n"
+    assert "repro_torch.launch.train" in mods
+    assert "repro_torch.core.runtime" in mods
+    benches = [str(p) for p in PORT_BENCHES]
+    assert any(p.endswith("torch_bench_ckpt.py") for p in benches)
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for i, path in enumerate({benches!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        f'_port_bench_{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'repro'\n"
             "             or m.startswith('repro.'))\n"
@@ -54,7 +64,9 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_port_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + PORT_BENCHES + \
+        [ROOT / "chip_smoke.py"]
+    assert len(PORT_BENCHES) >= 1
     bad = []
     for path in files:
         for name in _imports(path):

@@ -10,23 +10,30 @@ for the differences to compound over the steps compared).
 """
 import jax
 import numpy as np
+import pytest
 
 from repro.checkpoint import CheckpointManager as JaxManager
 from repro.config import CheckpointPlan as JaxPlan
 from repro.config import OptimizerConfig as JaxOptimizerConfig
 from repro.config import replace as jreplace
 from repro.configs import get_smoke_config as jax_smoke
-from repro.core import missing_handle_methods
+from repro.core import missing_handle_methods as jax_missing_handle_methods
 from repro.data.stream import EventStream as JaxEventStream
 from repro.data.stream import constant_rate as jax_constant_rate
 from repro.runtime import ResilientTrainer as JaxTrainer
 from repro.runtime import TrainerConfig as JaxTrainerConfig
 from repro_torch.config import CheckpointPlan, OptimizerConfig, replace
+from repro_torch.config import KhaosConfig
 from repro_torch.configs import get_smoke_config
-from repro_torch.data.stream import EventStream, constant_rate
+from repro_torch.core import (Decision, KhaosRuntime, PhaseError,
+                              missing_handle_methods)
+from repro_torch.data.stream import (EventStream, WorkloadRecording,
+                                     constant_rate)
+from repro_torch.launch.train import main as launch_train
 from repro_torch.models import zoo
 from repro_torch.runtime import (ResilientTrainer, TrainerConfig,
                                  TrainerJobHandle)
+from repro_torch.sim import SimCostModel
 from repro_torch.utils.trees import tree_flatten_with_names
 
 jax.config.update("jax_platform_name", "cpu")
@@ -63,6 +70,7 @@ def test_trainer_checkpoints_fails_restores_and_switches_codec(tmp_path):
     tr = _trainer(tmp_path)
     job = TrainerJobHandle(tr)
     assert missing_handle_methods(job) == []
+    assert jax_missing_handle_methods(job) == []
     _run_until(tr, lambda t: _ckpts(t, "delta"))
     assert _ckpts(tr, "full")
     tr.inject_failure_at(tr.t, "task")
@@ -126,3 +134,61 @@ def test_losses_match_jax_trainer(tmp_path):
     _run_until(tr, lambda t: len(t.losses) >= n)
     np.testing.assert_allclose(tr.losses[:n], jtr.losses[:n], rtol=1e-4)
 
+
+class _AnalyticDeployment:
+    """A profiling deployment with known surfaces: latency falls and
+    recovery grows with the CI (the shapes Phase 2 measures)."""
+
+    def __init__(self, ci: float):
+        self.ci = ci
+
+    def profile_failure(self, failure_time: float, margin: float):
+        return 0.05 + 2.0 / self.ci, 4.0 + self.ci + 1e-4 * failure_time
+
+
+def test_khaos_runtime_drives_the_trainer_through_a_plan_switch(tmp_path):
+    """The twin of the JAX package's runtime drill with the runtime
+    attached: Phase 1 over a recording, Phase 2 over a per-CI deployment
+    factory, Phase 3 polling on every trainer step.  The job runs at a CI
+    whose predicted recovery breaks the recovery constraint, so the
+    controller searches the two plan variants and switches the live
+    trainer to the int8 one (same recovery, less checkpoint overhead)."""
+    lossless = CheckpointPlan(**{**PLAN, "interval_s": 60.0})
+    int8 = replace(lossless, delta_codec="int8")
+    tr = _trainer(tmp_path, plan=lossless)
+    rt = KhaosRuntime(KhaosConfig(latency_constraint=1e3,
+                                  recovery_constraint=40.0,
+                                  optimization_period=2.0, ci_min=5.0,
+                                  ci_max=60.0, num_failure_points=3,
+                                  num_configs=3),
+                      cost=SimCostModel(device_encode_s=0.2,
+                                        device_encode_s_int8=0.1),
+                      plan_variants=[lossless, int8])
+    with pytest.raises(PhaseError):
+        rt.attach(TrainerJobHandle(tr))
+    times = np.arange(600.0)
+    rt.record_steady_state(WorkloadRecording(times, 400.0 + times % 50))
+    rt.run_profiling(_AnalyticDeployment)
+    rt.attach(TrainerJobHandle(tr))
+    assert rt.phase_sequence() == ["steady_state", "profiled", "optimizing"]
+
+    decisions = []
+    tr.run(duration_s=6.0, on_second=lambda s: decisions.append(rt.step()))
+    made = [d for d in decisions if d is not None]
+    assert made and all(d.kind in Decision.KINDS for d in made)
+    switch = next(d for d in made if d.new_plan is not None)
+    assert switch.kind == "reconfigure"
+    assert switch.new_plan.delta_codec == "int8"
+    assert switch.predicted_recovery > 40.0
+    assert tr.ckpt.plan.name == switch.new_plan.name == \
+        replace(int8, interval_s=switch.new_ci).name
+    assert tr.summary()["plan_switches"] == 1
+    assert any(e["event"] == "set_plan" for e in tr.events)
+
+
+def test_launch_train_local_khaos_runs_on_the_cpu(tmp_path):
+    summary = launch_train(["--arch", "yi-6b", "--local", "--khaos",
+                            "--duration", "4", "--device", "cpu",
+                            "--ckpt-dir", str(tmp_path)])
+    assert summary["final_step"] > 0
+    assert np.isfinite(summary["final_loss"])
