@@ -34,9 +34,10 @@ Phases, in order (any failure exits non-zero, before the result line):
   khaos 1-2    ``KhaosRuntime`` records the trainer stream's steady state
                and profiles a (failure point x CI) grid on simulated
                deployments priced by that cost model, fitting M_L and M_R;
-  khaos 3      the runtime attaches to the live trainer; the backlog the
-               lossless delta's stall left violates the latency constraint
-               and the controller's Decision switches the plan to int8;
+  khaos 3      the runtime attaches to the live trainer; the backlog that
+               the lossless delta's stall and the failure left (read on
+               each side of both) violates the latency constraint and the
+               controller's Decision switches the plan to int8;
   int8         under the switched plan: a full, an int8 delta trigger, a
                second failure and a restore checked within the per-group
                max|delta|/254 bound.
@@ -60,6 +61,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import importlib.util
 import json
 import math
+import resource
 import shutil
 import subprocess
 import sys
@@ -538,8 +540,7 @@ class TrainerRun:
     """The live trainer and the scripts that drive it, phase by phase."""
 
     def __init__(self, model_cfg, device, ckpt_dir: Path, batch: int,
-                 seq_len: int, rate: float = STREAM_RATE,
-                 time_scale: float = 1.0):
+                 seq_len: int):
         from repro_torch.config import CheckpointPlan, OptimizerConfig
         from repro_torch.data.stream import EventStream
         from repro_torch.runtime import (ResilientTrainer, TrainerConfig,
@@ -555,10 +556,9 @@ class TrainerRun:
                                    delta_codec="lossless", levels=("local",),
                                    sync=True, codec="zlib",
                                    replication_factor=0, keep=1)
-        self.schedule = wave_rate(rate, STREAM_WAVE, STREAM_PERIOD_S)
+        self.schedule = wave_rate(STREAM_RATE, STREAM_WAVE, STREAM_PERIOD_S)
         self.tcfg = TrainerConfig(batch=batch, seq_len=seq_len,
-                                  ckpt_dir=str(ckpt_dir),
-                                  time_scale=time_scale, detect_s=DETECT_S,
+                                  ckpt_dir=str(ckpt_dir), detect_s=DETECT_S,
                                   restart_s=RESTART_S, plan=self.plan)
         self.tr = ResilientTrainer(
             model_cfg, self.tcfg, EventStream(schedule=self.schedule),
@@ -566,6 +566,7 @@ class TrainerRun:
             seed=0, device=device)
         self.job = TrainerJobHandle(self.tr)
         self.saved: dict = {}
+        self.lags: dict = {}      # name -> the stream's backlog (events)
 
     # -- scripted actions ----------------------------------------------
     def trigger(self):
@@ -578,6 +579,14 @@ class TrainerRun:
     def quiet(self):
         """No cadence trigger: the checkpoints are the script's."""
         self.job.reconfigure(1e9)
+
+    def read_lag(self, name: str):
+        """Record the stream's backlog at the job's clock now (the
+        loop's next ``produce_until`` would bring it to the same)."""
+        def read():
+            self.tr.stream.produce_until(self.tr.t)
+            self.lags[name] = self.tr.stream.lag
+        return read
 
     def copy(self, key: str):
         from repro_torch.models.zoo import state_to_numpy
@@ -618,11 +627,17 @@ class TrainerRun:
     def lossless_half(self) -> None:
         """Full at step 2, lossless delta at step 4, task failure after
         step LOSSLESS_STEPS (the steps between give the job's step time),
-        and a restore through the decode kernel checked bit-equal."""
+        and a restore through the decode kernel checked bit-equal.  The
+        backlog is read on each side of the delta's stall (its trigger
+        blocks before step 5) and of the failure and restore."""
         self.run_script({2: [self.trigger],
-                         4: [lambda: self.copy("lossless"), self.trigger],
-                         LOSSLESS_STEPS: ["stop"]})
+                         4: [self.read_lag("before_delta"),
+                             lambda: self.copy("lossless"), self.trigger],
+                         5: [self.read_lag("after_delta")],
+                         LOSSLESS_STEPS: [self.read_lag("before_failure"),
+                                          "stop"]})
         self.fail_and_restore()
+        self.read_lag("after_restore")()
         ev = self.ckpt_events()
         check([e["kind"] for e in ev] == ["full", "delta", "full+delta"],
               f"lossless phase events {ev}")
@@ -649,25 +664,9 @@ class TrainerRun:
         return margin
 
     def step_s(self) -> float:
-        """Median step time of the run so far, on the job's (virtual)
-        clock."""
+        """Median step time of the run so far."""
         import numpy as np
-        wall = np.median(self.tr.metrics.series("step_time").values)
-        return float(wall) * self.tcfg.time_scale
-
-
-def on_job_clock(cal: dict, time_scale: float) -> dict:
-    """The artifact's seconds on the trainer's virtual clock (wall seconds
-    x ``time_scale``; the identity at the smoke's time_scale of 1)."""
-    if time_scale == 1.0:
-        return cal
-    out = json.loads(json.dumps(cal))
-    for k in ("full_write_s", "restore_s", "delta_encode_s_per_byte"):
-        out[k] *= time_scale
-    for entry in out["device"].values():
-        for k in ("encode_s", "pack_s", "per_leaf_encode_s"):
-            entry[k] *= time_scale
-    return out
+        return float(np.median(self.tr.metrics.series("step_time").values))
 
 
 def calibration_artifact(run: TrainerRun, device_section: dict,
@@ -727,7 +726,7 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
     step_s = run.step_s()
     capacity = run.tcfg.batch / step_s
     cost = SimCostModel.from_calibration(
-        on_job_clock(cal, run.tcfg.time_scale), capacity_eps=capacity,
+        cal, capacity_eps=capacity,
         base_latency_s=step_s,
         detect_s=run.tcfg.detect_s, restart_s=run.tcfg.restart_s)
     cis = [f * cost.ckpt_duration_s for f in CI_GRID]
@@ -778,6 +777,7 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
         d = rt.step()
         if d is not None:
             decisions.append(d)
+            run.lags[f"at_decision_{len(decisions)}"] = info["lag"]
             log(f"  decision at t={d.t:.3f}: {d.kind}, latency "
                 f"{d.latency:.4f}, predicted recovery "
                 f"{d.predicted_recovery:.4f}")
@@ -817,7 +817,7 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
                             "recovery": rt.cfg.recovery_constraint},
             "ci_grid": cis, "phases": rt.phase_sequence(),
             "decisions": [d.kind for d in decisions],
-            "capacity_eps": capacity, "step_s": step_s,
+            "capacity_eps": capacity, "step_s": step_s, "lag": run.lags,
             "m_l_pct_error": info["m_l_pct_error"],
             "m_r_pct_error": info["m_r_pct_error"]}
 
@@ -916,8 +916,10 @@ def main() -> int:
             "event", "kind", "step", "blocking_s", "bytes_on_link",
             "bytes_written", "level", "duration_s")}))
     check(all(math.isfinite(x) for x in run.tr.losses), "non-finite loss")
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log(f"trainer: {len(run.tr.losses)} steps, median step "
         f"{run.step_s():.3f} s, device memory peak {peak / 1e9:.2f} GB, "
+        f"host memory peak (whole run) {host_peak / 1e9:.2f} GB, "
         f"bytes written {summary['ckpt_stats']['bytes_written']}, "
         f"bytes on link {summary['ckpt_stats']['bytes_on_link']}")
     log(f"kernel launches on the trainer path: {launches}")

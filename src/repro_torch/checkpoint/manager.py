@@ -68,7 +68,7 @@ from repro_torch.checkpoint.incremental import (apply_delta,
 from repro_torch.checkpoint.multilevel import allowed_levels
 from repro_torch.checkpoint.pipeline import (ChunkedHostSnapshot,
                                              DeltaLeafSource,
-                                             DeviceDeltaBase,
+                                             DeviceDeltaBase, HostLanding,
                                              PlainLeafSource)
 from repro_torch.checkpoint.policy import CheckpointPolicy
 from repro_torch.checkpoint.replication import PeerReplicatedStore
@@ -155,6 +155,8 @@ class CheckpointManager:
         # refreshed on every full trigger/savepoint so delta triggers can
         # encode on device without a host round trip
         self._device_base: Optional[DeviceDeltaBase] = None
+        # the host memory device-delta payloads land in, reused per trigger
+        self._landing = HostLanding()
         self._count = 0
         self._committer = (None if plan.sync
                            else BackgroundCommitter(plan.busy_policy))
@@ -226,7 +228,8 @@ class CheckpointManager:
             # delta-upgraded-to-full self-heal) through immutable refs
             snap = DeltaLeafSource(state, self._device_base,
                                    codec=self.plan.delta_codec,
-                                   chunk_bytes=self.plan.chunk_bytes)
+                                   chunk_bytes=self.plan.chunk_bytes,
+                                   landing=self._landing)
         else:
             snap = (ChunkedHostSnapshot(
                         state, self.plan.chunk_bytes,
@@ -433,10 +436,11 @@ class CheckpointManager:
         the invariant lives here, next to the fields it protects.  The
         device-resident delta base rides along, so a plan switch onto (or
         between) device-encode plans deltas against the drained full
-        without re-uploading it."""
+        without re-uploading it, and so does the payload landing."""
         self._memory = old._memory
         self._base, self._base_step = old._base, old._base_step
         self._device_base = old._device_base
+        self._landing = old._landing
 
     def wait(self) -> None:
         """Drain any in-flight async commit."""
@@ -452,6 +456,12 @@ class CheckpointManager:
         DEGRADED partial restore instead of a free local read.  With no
         ``host`` the node failure models a process loss whose disk
         survives (the pre-replication semantics, kept for back-compat)."""
+        # the restore that follows holds the base, the payload and the
+        # decoded state in host memory at once: give the landing's pages
+        # back (the next device-delta trigger registers them again) once
+        # no commit still copies into them (restore waits for it anyway)
+        self.wait()
+        self._landing.release()
         if failure_kind in ("node", "cluster"):
             self._memory = None
             self._base = None     # host RAM gone: next save must be a full

@@ -30,8 +30,10 @@ in-place change in between raises ``SnapshotMutationError``.
 
 Streams.  D2H copies run on ``transfer_pool`` threads as synchronous
 copies into host memory on the default stream, so they are ordered after
-the encode that produced their input; no ``non_blocking`` copy into
-pageable memory is ever made.
+the encode that produced their input; no ``non_blocking`` copy is ever
+made.  A device delta's encoded payload lands in the manager's
+``HostLanding`` (page-locked for CUDA tensors, reused from trigger to
+trigger); raw leaves land in pageable numpy arrays.
 
   * ``ChunkedHostSnapshot``: mutable host leaves (``np.ndarray``) are
     deep-copied eagerly; tensors are held by reference (version-checked),
@@ -47,6 +49,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -115,6 +118,65 @@ class HeldTensor:
         arr = tensor_to_numpy(self.check())
         self.check()           # a change during the copy is caught too
         return arr
+
+
+def _unregister(buf: np.ndarray) -> None:
+    torch.cuda.cudart().cudaHostUnregister(buf.ctypes.data)
+
+
+class HostLanding:
+    """Host memory a device delta's payload planes land in, kept and
+    reused from trigger to trigger (one per ``CheckpointManager``, carried
+    across plan switches).  For planes on a CUDA device it is registered
+    with CUDA (page-locked) once, at its exact size, when a trigger first
+    needs more than it holds: the D2H copies then run at the link's DMA
+    rate, and a trigger allocates and pins nothing.  The manager releases
+    it when it handles a failure, so a restore has the host memory.
+
+    ``take`` hands out the planes of ONE trigger, end to end; they stay
+    valid until the next ``take``.  ``generation`` counts the takes, so a
+    source whose planes were handed out again raises instead of writing
+    another trigger's bytes (``DeltaLeafSource.flat_payload``).  A
+    manager's next delta trigger comes after the last one's commit (sync
+    commit, or an async commit waited for or skipped), so this never
+    fires on the manager's own path."""
+
+    ALIGN = 64            # bytes; every plane starts on this boundary
+
+    def __init__(self):
+        self.buf: Optional[np.ndarray] = None
+        self.pinned = False
+        self.generation = 0
+        self._unpin: Optional[weakref.finalize] = None
+
+    def take(self, planes: list, pin: bool) -> list[np.ndarray]:
+        """One array per ``(count, dtype)`` of ``planes``; ``pin`` registers
+        the memory with CUDA (the planes come from a CUDA device)."""
+        offsets, total = [], 0
+        for n, dtype in planes:
+            offsets.append(total)
+            nbytes = n * np.dtype(dtype).itemsize
+            total += -(-nbytes // self.ALIGN) * self.ALIGN
+        if self.buf is None or self.buf.nbytes < total or self.pinned != pin:
+            self.release()
+            buf = np.empty(max(total, self.ALIGN), np.uint8)
+            if pin:
+                err = int(torch.cuda.cudart().cudaHostRegister(
+                    buf.ctypes.data, buf.nbytes, 0))
+                if err:
+                    raise RuntimeError(f"cudaHostRegister of {buf.nbytes} "
+                                       f"bytes failed: cudaError {err}")
+                self._unpin = weakref.finalize(self, _unregister, buf)
+            self.buf, self.pinned = buf, pin
+        self.generation += 1
+        return [self.buf[o:o + n * np.dtype(dt).itemsize].view(dt)
+                for o, (n, dt) in zip(offsets, planes)]
+
+    def release(self) -> None:
+        """Unregister and free the memory (the next ``take`` makes more)."""
+        if self._unpin is not None:
+            self._unpin()
+        self.buf, self.pinned, self._unpin = None, False, None
 
 
 def _spec_of(leaf: Any) -> tuple[tuple, np.dtype]:
@@ -390,7 +452,8 @@ class DeltaLeafSource(LeafSource):
 
     def __init__(self, state: Any, base: DeviceDeltaBase,
                  codec: str = "lossless",
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 landing: Optional[HostLanding] = None):
         assert codec in ("lossless", "int8"), codec
         from repro_torch.kernels.ckpt_delta.ops import (flat_int8_encode,
                                                         flat_lossless_encode,
@@ -407,6 +470,9 @@ class DeltaLeafSource(LeafSource):
         self._link_bytes = 0
         self.layout: Optional[FlatLayout] = None
         self.zero_names: tuple = ()
+        # without the manager's landing, a source lands in one of its own
+        self._landing = landing or HostLanding()
+        self._generation = 0
 
         packed: list[HeldTensor] = []
         for name, leaf in named:
@@ -460,11 +526,17 @@ class DeltaLeafSource(LeafSource):
     def _start_transfers(self, arrays: list, chunk_bytes: int) -> None:
         """Chunk the encoded payload arrays and stream them D2H: first
         chunk synchronously (the blocking cost), the rest on the pool."""
+        # the residual's int32 bits are the on-disk u32 words
+        planes = [(int(dev.numel()),
+                   np.dtype(np.uint32) if sfx == "r" else np_dtype(dev))
+                  for sfx, dev in arrays]
+        if not planes:
+            return
+        hosts = self._landing.take(planes,
+                                   pin=any(d.is_cuda for _, d in arrays))
+        self._generation = self._landing.generation
         tasks: list[tuple] = []
-        for sfx, dev in arrays:
-            # the residual's int32 bits are the on-disk u32 words
-            dtype = np.dtype(np.uint32) if sfx == "r" else np_dtype(dev)
-            host = np.empty(int(dev.numel()), dtype)
+        for (sfx, dev), host in zip(arrays, hosts):
             self._payload[sfx] = host
             per = max(GROUP, chunk_bytes // host.itemsize)
             for a in range(0, host.size, per):
@@ -480,8 +552,8 @@ class DeltaLeafSource(LeafSource):
                     b: int) -> None:
         view = host[a:b].view(np.int32) if host.dtype == np.uint32 \
             else host[a:b]
-        # a synchronous copy into pageable host memory, on the default
-        # stream: ordered after the encode that produced ``dev``
+        # a synchronous copy on the default stream: ordered after the
+        # encode that produced ``dev``
         torch.from_numpy(view).copy_(dev[a:b])
         self._account((b - a) * host.itemsize)
 
@@ -495,6 +567,11 @@ class DeltaLeafSource(LeafSource):
         skipped all-zero residual plane; empty when every packed leaf was
         unchanged.  Blocks until every chunk has landed."""
         self.wait()
+        if self._generation and \
+                self._landing.generation != self._generation:
+            raise SnapshotMutationError(
+                "this delta's payload planes were handed to a later trigger "
+                "before it was written")
         return dict(self._payload)
 
     # -- LeafSource interface -------------------------------------------

@@ -148,20 +148,8 @@ class KhaosController:
     plan_variants: Optional[list] = None
     mtbf_s: float = 3600.0
     decisions: list = field(default_factory=list)
-    # fleet-shared decision log: when many controllers supervise many jobs
-    # in one process (fleet.FleetSupervisor), every Decision is ALSO
-    # appended to ``decision_log`` as ``(label, Decision)`` — one audit
-    # trail across the whole fleet, in global decision order.  ``label``
-    # names this controller's job in that log.  Both default off, so a
-    # solo controller is unchanged.
-    label: Optional[str] = None
-    decision_log: Optional[list] = None
     _last_reconfig_t: float = -1e18
     _last_opt_t: float = -1e18
-    # the M_L evaluation of the most recent due poll — consumers that
-    # score the same (CI, TR) point (fleet divergence watchdogs) read it
-    # instead of paying a second ``QoSModel.predict``
-    last_pred_lat: float = float("nan")
     # error-analysis tracking (Tables II(a)/III(a))
     latency_obs: list = field(default_factory=list)    # (ci, tr, observed)
     recovery_obs: list = field(default_factory=list)
@@ -188,23 +176,13 @@ class KhaosController:
                           self.cfg.ci_min, self.cfg.ci_max)
         return res.ci if res.feasible else None
 
-    def maybe_optimize(self, job: JobHandle,
-                       shared_pred: Optional[tuple] = None
-                       ) -> Optional[Decision]:
+    def maybe_optimize(self, job: JobHandle) -> Optional[Decision]:
         """Run one optimization cycle if the period elapsed. Returns the
-        decision made (or None if not yet due).
-
-        ``shared_pred`` is the batched-evaluation hook used by
-        ``KhaosRuntime.drive_campaign``: a pre-computed ``(pred_lat,
-        pred_rec)`` pair for this job's current (CI, TR), evaluated ONCE
-        over all lanes' vectors per period instead of twice per lane.
-        ``QoSModel.predict`` is row-independent, so the shared values are
-        bit-identical to the per-lane ones and Decisions are unchanged."""
+        decision made (or None if not yet due)."""
         t = job.now()
         if t - self._last_opt_t < self.cfg.optimization_period:
             return None
         self._last_opt_t = t
-        self.last_pred_lat = float("nan")
 
         if not job.healthy():
             return self._decide(t, "unhealthy", float("nan"), float("nan"),
@@ -220,13 +198,8 @@ class KhaosController:
             return self._decide(t, "none", lat, tr_avg, float("nan"))
 
         # localize M_L predictions to current conditions (rescaling factor p)
-        if shared_pred is not None:
-            pred_lat, pred_rec = float(shared_pred[0]), float(shared_pred[1])
-        else:
-            p_l, p_r = self.m_l.predict_pair(self.m_r,
-                                             np.array([ci_now]), tr_avg)
-            pred_lat, pred_rec = float(p_l[0]), float(p_r[0])
-        self.last_pred_lat = pred_lat
+        p_l, p_r = self.m_l.predict_pair(self.m_r, np.array([ci_now]), tr_avg)
+        pred_lat, pred_rec = float(p_l[0]), float(p_r[0])
         self.rescaler.track(lat, pred_lat)
         self.latency_obs.append((ci_now, tr_avg, lat))
 
@@ -362,8 +335,6 @@ class KhaosController:
                 new_plan=None) -> Decision:
         d = Decision(t, kind, lat, tr, rec, new_ci, new_plan)
         self.decisions.append(d)
-        if self.decision_log is not None:
-            self.decision_log.append((self.label, d))
         return d
 
     # -- post-execution error analysis (paper Tables II(a)/III(a)) -----------

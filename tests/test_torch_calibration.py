@@ -3,7 +3,9 @@ closes the loop with both packages' cost models: its CPU smoke writes a
 ``bench_ckpt/3`` artifact that the port's AND the JAX package's
 ``SimCostModel.from_calibration`` load into equal fields (both are the
 same NumPy code: exact equality), and that both packages' bench
-validators accept.
+validators accept.  The validators' one timing check (the fused encode
+under the per-leaf baseline) is held on constructed times: CPU timings of
+the plain versions decide nothing, and these tests read no clock.
 """
 import dataclasses
 import importlib.util
@@ -11,7 +13,6 @@ import json
 from pathlib import Path
 
 import pytest
-import torch
 
 from repro.sim import SimCostModel as JCost
 from repro_torch.sim import SimCostModel as TCost
@@ -30,19 +31,17 @@ def _load(name: str):
 
 @pytest.fixture(scope="module")
 def artifact(tmp_path_factory):
-    """The smoke's artifact, measured with one intra-op thread (restored
-    after): the device section compares a fused pass with per-leaf
-    dispatches, and with the default thread pool a loaded machine stalls
-    the fused pass's parallel ops on oversubscribed cores."""
     tmp = tmp_path_factory.mktemp("calibration")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cal = _load("torch_bench_ckpt").smoke(str(tmp / "smoke"),
-                                              device="cpu")
-    finally:
-        torch.set_num_threads(threads)
+    cal = _load("torch_bench_ckpt").smoke(str(tmp / "smoke"), device="cpu")
     return cal, tmp / "smoke" / "BENCH_ckpt_torch.json"
+
+
+def _timed(cal: dict, fused: float, per_leaf: float) -> dict:
+    """``cal`` with every codec's fused and per-leaf encode seconds set."""
+    out = json.loads(json.dumps(cal))
+    for entry in out["device"].values():
+        entry.update(encode_s=fused, per_leaf_encode_s=per_leaf)
+    return out
 
 
 def test_smoke_writes_a_bench_ckpt_v3_artifact(artifact):
@@ -72,8 +71,23 @@ def test_both_cost_models_load_it_into_equal_fields(artifact):
 def test_both_validators_accept_it(artifact):
     _, path = artifact
     cal = json.loads(path.read_text())
-    _load("torch_bench_ckpt").validate_calibration(cal)
-    _load("bench_ckpt").validate_calibration(cal)
+    twin = _load("torch_bench_ckpt")
+    twin.validate_calibration(cal, timings=False)
+    timed = _timed(cal, fused=0.4, per_leaf=0.5)
+    twin.validate_calibration(timed)
+    _load("bench_ckpt").validate_calibration(timed)
     bad = dict(cal, delta_fraction=-1.0)
     with pytest.raises(ValueError, match="non-negative"):
-        _load("torch_bench_ckpt").validate_calibration(bad)
+        twin.validate_calibration(bad, timings=False)
+
+
+@pytest.mark.parametrize("per_leaf", [0.4, 0.3], ids=["equal", "faster"])
+def test_both_validators_refuse_a_fused_encode_not_under_per_leaf(
+        artifact, per_leaf):
+    _, path = artifact
+    timed = _timed(json.loads(path.read_text()), fused=0.4,
+                   per_leaf=per_leaf)
+    for mod in ("torch_bench_ckpt", "bench_ckpt"):
+        with pytest.raises(ValueError, match="regressed"):
+            _load(mod).validate_calibration(timed)
+    _load("torch_bench_ckpt").validate_calibration(timed, timings=False)

@@ -25,6 +25,7 @@ from repro_torch.checkpoint import (CheckpointManager, CheckpointPlan,
                                     DeltaLeafSource, DeviceDeltaBase,
                                     SnapshotMutationError,
                                     read_delta_manifest)
+from repro_torch.checkpoint.pipeline import HostLanding
 from repro_torch.utils.trees import tree_flatten_with_names
 
 jax.config.update("jax_platform_name", "cpu")
@@ -194,6 +195,55 @@ def test_delta_source_guards_lazily_copied_leaves():
     with pytest.raises(SnapshotMutationError, match="step"):
         src.get("step")
     assert src.flat_payload()["d"].dtype == np.float32
+
+
+def test_host_landing_lays_planes_end_to_end_and_grows():
+    landing = HostLanding()
+    d, r = landing.take([(3000, np.float32), (3000, np.uint32)], pin=False)
+    assert (d.dtype, r.dtype, d.size, r.size) == \
+        (np.float32, np.uint32, 3000, 3000)
+    base = landing.buf.ctypes.data
+    assert [a.ctypes.data - base for a in (d, r)] == [0, 12032]  # 64-B aligned
+    buf = landing.buf
+    landing.take([(100, np.int8), (1, np.float32)], pin=False)
+    assert landing.buf is buf                     # fits: reused
+    landing.take([(10 ** 5, np.float32)], pin=False)
+    assert landing.buf is not buf and landing.generation == 3
+    landing.release()
+    assert landing.buf is None
+
+
+def test_device_deltas_reuse_the_managers_landing(tmp_path):
+    """Every device-delta trigger's payload lands in the manager's one
+    HostLanding; the deltas still restore bit for bit."""
+    s0, s1 = _np_pair(6)
+    s2 = {**s1, "params": {**s1["params"],
+                           "w": s1["params"]["w"] * np.float32(1.5)},
+          "step": np.int32(6)}
+    plan = CheckpointPlan(mode="incremental", full_every=4,
+                          encode_placement="device", codec="zlib")
+    mgr = CheckpointManager(str(tmp_path), plan, device="cpu")
+    mgr.save(0, _to_port(s0), 0.0, {"t": 0.0})
+    assert mgr.save(1, _to_port(s1), 1.0, {"t": 1.0}).kind == "delta"
+    buf = mgr._landing.buf
+    assert mgr.save(2, _to_port(s2), 2.0, {"t": 2.0}).kind == "delta"
+    assert mgr._landing.buf is buf and mgr._landing.generation == 2
+    mgr.on_failure("task")                  # the restore gets the memory
+    assert mgr._landing.buf is None
+    got = CheckpointManager(str(tmp_path), plan, device="cpu").restore(
+        _to_port(s0), "node")
+    assert got.step == 2 and _bit_equal(got.state, s2)
+
+
+def test_a_payload_handed_to_a_later_trigger_raises():
+    s0, s1 = _np_pair(7)
+    base = DeviceDeltaBase(_to_port(s0))
+    landing = HostLanding()
+    first = DeltaLeafSource(_to_port(s1), base, landing=landing)
+    second = DeltaLeafSource(_to_port(s1), base, landing=landing)
+    assert second.flat_payload()["d"].dtype == np.float32
+    with pytest.raises(SnapshotMutationError, match="later trigger"):
+        first.flat_payload()
 
 
 def test_manager_without_device_needs_cuda(tmp_path):
