@@ -5,8 +5,10 @@
 
 Phases, in order (any failure exits non-zero, before the result line):
 
-  build        compile the ckpt_delta CUDA kernels from the sources in this
-               checkout (nvcc, sm_90a) and print the build seconds;
+  build        compile the four kernel libraries (ckpt_delta,
+               flash_attention, rglru, rwkv6) from the sources in this
+               checkout, one nvcc (sm_90a) each, all started together, and
+               print each build's seconds;
   kernels      hold each of the six kernels against its plain PyTorch
                version on the card, every output bit for bit: the four
                flat kernels (#1-#4) at small awkward sizes and at the packed
@@ -16,6 +18,19 @@ Phases, in order (any failure exits non-zero, before the result line):
                state.  Time plain and kernel in turns (plain, kernel,
                kernel, plain) and compute each kernel's bound from the
                bytes it must move and the card's memory rate;
+  seqmix       the kernel-bench path (``benchmarks/torch_bench_kernels.py``,
+               the E6 twin): its four reference rows on the card, then its
+               card table at published widths (yi-6b, grok-1 and
+               recurrentgemma-2b attention, recurrentgemma-2b's RG-LRU,
+               rwkv6-3b's WKV-6): flash attention (#7), the RG-LRU scan
+               (#8) and WKV-6 (#9) against their plain versions, timed in
+               turns beside their bounds and, for attention,
+               ``scaled_dot_product_attention``; then each of the three at
+               every shape of the reference's kernel sweeps
+               (``tests/test_kernels.py``): #7 within 2e-4 (float32) /
+               5e-2 (bfloat16), #8 bit for bit, #9 within 2e-4, including
+               the two-call state carry.  Its tensors are freed before the
+               calibration;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -42,9 +57,10 @@ Phases, in order (any failure exits non-zero, before the result line):
                second failure and a restore checked within the per-group
                max|delta|/254 bound.
 
-Kernel launch counts are set to 0 just before the calibration path and
-read just after it (#5/#6), and again around the trainer path, from the
-lossless half to the int8 half (#1-#4).  The line before the last is
+Kernel launch counts are set to 0 just before the kernel-bench path and
+read just after it (#7-#9), likewise around the calibration path (#5/#6)
+and around the trainer path, from the lossless half to the int8 half
+(#1-#4).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 With no CUDA device, or without the ``src/repro_torch`` package beside
 this file, it exits non-zero and prints no result.  Checkpoints go to
@@ -72,6 +88,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CKPT_DIR = ROOT / ".chip_smoke_ckpt"
 BENCH = ROOT / "benchmarks" / "torch_bench_ckpt.py"
+KBENCH = ROOT / "benchmarks" / "torch_bench_kernels.py"
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -93,24 +110,42 @@ LOSSLESS_STEPS = 20                # steps of the lossless half
 KHAOS_PERIOD_S = 5.0               # controller optimization period
 CI_GRID = (1.5, 3.0, 6.0)          # profiled CIs, x the calibrated full write
 
+_CKPT = ("src/repro/kernels/ckpt_delta/kernel.py",
+         "src/repro_torch/kernels/ckpt_delta/csrc/ckpt_delta.cu")
 KERNELS = {
-    # name: (TPU kernel replaced, bytes per element, ops per element)
-    "flat_lossless_encode": ("src/repro/kernels/ckpt_delta/kernel.py:198",
-                             16 + 8 / GROUP, 5),
-    "flat_int8_encode": ("src/repro/kernels/ckpt_delta/kernel.py:240",
-                         9 + 8 / GROUP, 9),
-    "lossless_decode": ("src/repro/kernels/ckpt_delta/kernel.py:152",
-                        16, 2),
-    "delta_decode": ("src/repro/kernels/ckpt_delta/kernel.py:267",
-                     5 + 4 / GROUP, 2),
-    "lossless_encode": ("src/repro/kernels/ckpt_delta/kernel.py:128",
-                        16, 3),
-    "delta_encode": ("src/repro/kernels/ckpt_delta/kernel.py:82",
-                     9 + 4 / GROUP, 7),
+    # name: (TPU kernel replaced, CUDA source, bytes per element, ops per
+    # element); #7-#9 count their work per shape in the bench's ``work``
+    "flat_lossless_encode": (f"{_CKPT[0]}:198", _CKPT[1], 16 + 8 / GROUP, 5),
+    "flat_int8_encode": (f"{_CKPT[0]}:240", _CKPT[1], 9 + 8 / GROUP, 9),
+    "lossless_decode": (f"{_CKPT[0]}:152", _CKPT[1], 16, 2),
+    "delta_decode": (f"{_CKPT[0]}:267", _CKPT[1], 5 + 4 / GROUP, 2),
+    "lossless_encode": (f"{_CKPT[0]}:128", _CKPT[1], 16, 3),
+    "delta_encode": (f"{_CKPT[0]}:82", _CKPT[1], 9 + 4 / GROUP, 7),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/kernel.py:88",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        None, None),
+    "rglru_scan": ("src/repro/kernels/rglru/kernel.py:53",
+                   "src/repro_torch/kernels/rglru/csrc/rglru.cu", None, None),
+    "wkv6": ("src/repro/kernels/rwkv6/kernel.py:57",
+             "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu", None, None),
 }
 #: the path whose launch counts each kernel's row reports
 CALIBRATION_KERNELS = ("lossless_encode", "delta_encode")
-SOURCE = "src/repro_torch/kernels/ckpt_delta/csrc/ckpt_delta.cu"
+SEQMIX_KERNELS = ("flash_attention", "rglru_scan", "wkv6")
+TRAINER_KERNELS = tuple(k for k in KERNELS if k not in CALIBRATION_KERNELS
+                        + SEQMIX_KERNELS)
+#: the card-table row (name, dtype) each of #7-#9 reports in its line
+HEADLINE = {"flash_attention": ("attn-yi", "bfloat16"),
+            "rglru_scan": ("rglru-rg", "float32"),
+            "wkv6": ("wkv6-rwkv", "float32")}
+# shapes of the reference's kernel sweeps (tests/test_kernels.py), plus
+# attention at sequence lengths that leave a partial tile
+ATTN_SWEEP = ((1, 128, 4, 4, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
+              (1, 512, 2, 2, 256), (1, 200, 4, 2, 128), (1, 77, 2, 1, 64))
+ATTN_MASKS = ((True, 0), (True, 64), (False, 0))
+RGLRU_SWEEP = ((1, 128, 128), (2, 512, 256), (1, 256, 512))
+WKV6_SWEEP = ((1, 128, 2, 16), (2, 256, 2, 32), (1, 128, 4, 64))
 
 
 class SmokeFailure(RuntimeError):
@@ -134,18 +169,36 @@ def nvidia_smi_line() -> str:
         "nvidia-smi gave no output"
 
 
-def card_rates(name: str) -> tuple[float, float]:
-    """(HBM bytes/s, fp32 non-tensor FLOP/s) of the SKU NVIDIA's data
-    sheets name; an unknown card fails the run rather than guess."""
-    if "H200" in name:
-        return 4.8e12, 67e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
-    if "H100" in name:
-        return 3.35e12, 67e12
-    raise SmokeFailure(f"no published rates for card {name!r}")
+def card_rates(name: str):
+    """(HBM bytes/s, fp32 CUDA-core FLOP/s, bf16 dense tensor FLOP/s) of
+    the SKU NVIDIA's data sheets name, from the kernel bench's table
+    (``torch_bench_kernels.card_rates``); an unknown card fails the run
+    rather than guess."""
+    try:
+        return _module(KBENCH).card_rates(name)
+    except ValueError as e:
+        raise SmokeFailure(str(e)) from None
+
+
+def build_all() -> dict:
+    """Build the four kernel libraries, one nvcc each, all started
+    together: {family: (library path, seconds of its own build)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.ckpt_delta import kernel as ck
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rglru import kernel as rk
+    from repro_torch.kernels.rwkv6 import kernel as wk
+
+    def one(lib):
+        t0 = time.monotonic()
+        path = lib.build()
+        return path, time.monotonic() - t0
+    libs = {"ckpt_delta": ck.LIBRARY, "flash_attention": fk.LIBRARY,
+            "rglru": rk.LIBRARY, "rwkv6": wk.LIBRARY}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        futures = {name: ex.submit(one, lib) for name, lib in libs.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -184,35 +237,12 @@ def _compare(kernel_out, plain_fn, n: int, group_outs: tuple) -> tuple:
     return mism, err
 
 
-def _time(fn, reps: int = 2) -> float:
-    """Mean ms of ``reps`` single calls, CUDA events around each; the
-    output is freed before the next call."""
-    import torch
-    total = 0.0
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-        del out
-    return total / reps
-
-
 def _turns(kernel_fn, plain_fn) -> tuple[float, float]:
-    """plain, kernel, kernel, plain: (kernel ms, plain ms)."""
-    import torch
-    for fn in (kernel_fn, plain_fn):      # warm both once, one at a time
-        out = fn()
-        del out
-    torch.cuda.synchronize()
-    p1 = _time(plain_fn)
-    k1 = _time(kernel_fn)
-    k2 = _time(kernel_fn)
-    p2 = _time(plain_fn)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    """plain, kernel, kernel, plain, each the mean ms of 2 calls with CUDA
+    events around each (``torch_bench_kernels.turns``): (kernel ms, plain
+    ms).  Outputs are freed between calls."""
+    ms, plain_ms, _ = _module(KBENCH).turns(kernel_fn, plain_fn)
+    return ms, plain_ms
 
 
 def kernel_phase(dev, hbm: float, flops: float) -> dict:
@@ -324,7 +354,7 @@ def kernel_phase(dev, hbm: float, flops: float) -> dict:
 def _bound(name: str, n: int, hbm: float, flops: float) -> dict:
     """The least time the card could take for ``n`` elements: bytes over
     the HBM rate or operations over the fp32 rate, whichever is larger."""
-    bytes_per, ops_per = KERNELS[name][1], KERNELS[name][2]
+    bytes_per, ops_per = KERNELS[name][2], KERNELS[name][3]
     b_ms = n * bytes_per / hbm * 1e3
     o_ms = n * ops_per / flops * 1e3
     return {"bound_ms": max(b_ms, o_ms),
@@ -438,6 +468,128 @@ def per_leaf_phase(dev, hbm: float, flops: float, leaves: list) -> dict:
     return res
 
 
+def sweep_checks(dev) -> dict:
+    """Kernels #7-#9 against their plain versions at every shape of the
+    reference's sweeps: #7 within 2e-4 (float32) / 5e-2 (bfloat16) with
+    each mask and with softcap 30, #8 bit for bit in both dtypes, #9
+    within 2e-4, and the two-call state carry of #9 (one call over 256
+    steps against two of 128, the second from the first's state) within
+    the reference's 1e-4.  Returns each kernel's worst error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru, rwkv6
+
+    max_err = _module(KBENCH).max_err
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = dict.fromkeys(SEQMIX_KERNELS, 0.0)
+
+    def rn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def hold(name, out, ref, dtype, what):
+        err, ok = max_err(out, ref, dtype)
+        check(ok, f"{name} differs from plain beyond the tolerance at "
+                  f"{what}: max_abs_err {err}")
+        worst[name] = max(worst[name], err)
+
+    cases = [(shape, dtype, causal, window, 0.0) for shape in ATTN_SWEEP
+             for dtype in (f32, bf16) for causal, window in ATTN_MASKS]
+    cases.append(((1, 128, 4, 2, 64), f32, True, 0, 30.0))
+    for (B, S, H, K, hd), dtype, causal, window, cap in cases:
+        q, k, v = (rn(B, S, n, hd).to(dtype) for n in (H, K, K))
+        opts = dict(causal=causal, window=window, softcap=cap)
+        hold("flash_attention", fa.flash_attention(q, k, v, **opts),
+             fa.attention_ref(q, k, v, **opts), dtype,
+             f"B{B} S{S} H{H} K{K} hd{hd} {dtype} {opts}")
+    for B, S, D in RGLRU_SWEEP:
+        for dtype in (f32, bf16):
+            a = (torch.sigmoid(rn(B, S, D)) * 0.2 + 0.79).to(dtype)
+            b = (rn(B, S, D) * 0.1).to(dtype)
+            h0 = rn(B, D) * 0.5
+            h, ph = rglru.rglru_scan(a, b, h0), rglru.rglru_ref(a, b, h0)
+            m, e = _diff(h, ph)
+            check(m == 0, f"rglru_scan differs from plain at B{B} S{S} "
+                          f"D{D} {dtype}: {m} mismatches")
+            worst["rglru_scan"] = max(worst["rglru_scan"], e)
+
+    def wkv6_inputs(B, S, H, hs):
+        r, k, v = (rn(B, S, H, hs) * 0.5 for _ in range(3))
+        w = torch.sigmoid(rn(B, S, H, hs)) * 0.3 + 0.65
+        return r, k, v, w, rn(H, hs) * 0.3, torch.zeros(B, H, hs, hs,
+                                                        device=dev)
+    for shape in WKV6_SWEEP:
+        x = wkv6_inputs(*shape)
+        (y, st), (py, ps) = rwkv6.wkv6(*x), rwkv6.wkv6_ref(*x)
+        hold("wkv6", y, py, f32, f"{shape} y")
+        hold("wkv6", st, ps, f32, f"{shape} final state")
+    r, k, v, w, u, s0 = wkv6_inputs(1, 256, 2, 16)
+    y_all, s_all = rwkv6.wkv6(r, k, v, w, u, s0)
+    first, second = slice(0, 128), slice(128, 256)
+    _, s1 = rwkv6.wkv6(r[:, first], k[:, first], v[:, first], w[:, first],
+                       u, s0)
+    y2, s2 = rwkv6.wkv6(r[:, second], k[:, second], v[:, second],
+                        w[:, second], u, s1)
+    carry = max(float((y_all[:, second] - y2).abs().max()),
+                float((s_all - s2).abs().max()))
+    check(carry <= 1e-4, f"wkv6 state carry: two calls differ from one by "
+                         f"{carry}")
+    py, ps = rwkv6.wkv6_ref(r, k, v, w, u, s0)
+    hold("wkv6", y_all, py, f32, "state-carry sequence y")
+    hold("wkv6", s2, ps, f32, "state carried over two calls")
+    torch.cuda.synchronize()
+    log(f"sweeps: {len(cases)} attention cases, {2 * len(RGLRU_SWEEP)} "
+        f"RG-LRU, {len(WKV6_SWEEP)} WKV-6 and the state carry "
+        f"({carry:.3g}) within tolerance; worst errors {worst}")
+    return worst
+
+
+def seqmix_phase(dev) -> dict:
+    """The kernel-bench path: counts to 0, the E6 twin's four rows and its
+    card table at published widths, counts read; then the sweeps.
+    Returns, per kernel of #7-#9, its headline row, every full-width
+    shape, its launches on the path and its worst sweep error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru, rwkv6
+
+    kbench = _module(KBENCH)
+    families = (fa, rglru, rwkv6)
+    for f in families:
+        f.reset_launch_counts()
+    rows = kbench.bench_kernels(device=dev)
+    table = kbench.card_table(dev)
+    launches = {}
+    for f in families:
+        launches.update(f.launch_counts())
+    log(f"kernel-bench path launches: {launches}")
+    check(all("validated=True" in derived for _, _, derived in rows),
+          f"bench_kernels rows not validated: {rows}")
+    for r in table:
+        check(r["validated"], f"{r['kernel']} at {r['row']} {r['dtype']} "
+                              f"differs from plain: max_abs_err "
+                              f"{r['max_abs_err']}")
+    for name in SEQMIX_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was not launched on the kernel-bench path")
+    worst = sweep_checks(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    keys = ("row", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "flops", "bytes",
+            "library_max_abs_err")
+    res = {}
+    for name in SEQMIX_KERNELS:
+        head = next(r for r in table if r["kernel"] == name and
+                    (r["row"], r["dtype"]) == HEADLINE[name])
+        res[name] = {**{k: head[k] for k in keys[2:8]},
+                     "launches": launches[name],
+                     "sweep_max_abs_err": worst[name],
+                     "shapes": [{k: r.get(k) for k in keys} for r in table
+                                if r["kernel"] == name]}
+    return res
+
+
 def calibration_phase(model_cfg, dev) -> dict:
     """The device section of the checkpoint calibration on a fresh train
     state of its own (freed after): fused encodes vs the per-leaf
@@ -459,12 +611,19 @@ def calibration_phase(model_cfg, dev) -> dict:
     return device_section
 
 
+def _module(path: Path):
+    """A benchmark module, loaded by path once."""
+    if path.stem not in sys.modules:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[path.stem] = mod
+    return sys.modules[path.stem]
+
+
 def _bench():
-    """``benchmarks/torch_bench_ckpt.py``, by path."""
-    spec = importlib.util.spec_from_file_location("torch_bench_ckpt", BENCH)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """``benchmarks/torch_bench_ckpt.py``."""
+    return _module(BENCH)
 
 
 # ---------------------------------------------------------------------------
@@ -825,9 +984,11 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir() or not BENCH.is_file():
+    if not (SRC / "repro_torch").is_dir() or not BENCH.is_file() or \
+            not KBENCH.is_file():
         print("chip_smoke.py needs the repro_torch package under src/ and "
-              "benchmarks/torch_bench_ckpt.py beside it", file=sys.stderr)
+              "benchmarks/torch_bench_{ckpt,kernels}.py beside it",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -841,24 +1002,32 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), {kind}")
-    hbm, flops = card_rates(kind)
+    rates = card_rates(kind)      # an unknown card fails here
+    hbm, flops = rates.hbm, rates.fp32
     dev = torch.device("cuda", 0)
 
     import repro_torch  # noqa: F401  (sets the TF32 switches off)
     from repro_torch.config import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ckpt_delta import kernel as K
     from repro_torch.kernels.ckpt_delta import ops
 
     t0 = time.monotonic()
-    lib = K.build()
-    log(f"build: {lib.name} in {time.monotonic() - t0:.2f} s")
+    for name, (path, secs) in build_all().items():
+        log(f"build {name}: {path.name} in {secs:.2f} s")
+    log(f"build: {time.monotonic() - t0:.2f} s for the four libraries")
 
     cfg = replace(get_config("yi-6b"), num_layers=2)
     t0 = time.monotonic()
     results = kernel_phase(dev, hbm, flops)
     results.update(per_leaf_phase(dev, hbm, flops, _state_leaves(cfg)))
     log(f"kernel phase: {time.monotonic() - t0:.1f} s")
+
+    # -- kernel-bench path: #7-#9 -----------------------------------------
+    t0 = time.monotonic()
+    seqmix = seqmix_phase(dev)
+    log(f"seqmix phase: {time.monotonic() - t0:.1f} s, device memory in "
+        f"use after it {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    print(json.dumps({"seqmix": seqmix}))
 
     # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
     torch.cuda.reset_peak_memory_stats()
@@ -923,17 +1092,21 @@ def main() -> int:
         f"bytes written {summary['ckpt_stats']['bytes_written']}, "
         f"bytes on link {summary['ckpt_stats']['bytes_on_link']}")
     log(f"kernel launches on the trainer path: {launches}")
-    for name in KERNELS:
-        if name not in CALIBRATION_KERNELS:
-            check(launches[name] > 0,
-                  f"{name} was not launched on the trainer path")
+    for name in TRAINER_KERNELS:
+        check(launches[name] > 0,
+              f"{name} was not launched on the trainer path")
 
     rows = []
-    for name, (replaces, _, _) in KERNELS.items():
+    for name, (replaces, source, _, _) in KERNELS.items():
+        if name in SEQMIX_KERNELS:
+            r = seqmix[name]
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, **r, "path": "kernel bench"})
+            continue
         r = results[name]
         n = (calib_launches if name in CALIBRATION_KERNELS
              else launches)[name]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -942,8 +1115,10 @@ def main() -> int:
                      "elements": r["elements"],
                      "path": ("calibration" if name in CALIBRATION_KERNELS
                               else "trainer")})
-    log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null: no "
-        f"single PyTorch call computes any of these six functions")
+    log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null for "
+        f"#1-#6 (no single PyTorch call computes them), for #8 and #9, and "
+        f"for softcapped attention; #7's is scaled_dot_product_attention "
+        f"at its headline row")
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

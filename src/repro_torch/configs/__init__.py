@@ -1,14 +1,17 @@
 """Architecture config registry of the port.
 
-Only the dense family the port runs so far is registered; each module
-exposes ``CONFIG`` (the published config) and ``SMOKE`` (a reduced
-same-family config for CPU tests), as in the JAX package.
+Each module exposes ``CONFIG`` (the published config) and ``SMOKE`` (a
+reduced same-family config for CPU tests), as in the JAX package.  The
+model zoo runs only the dense family so far (yi-6b); recurrentgemma-2b,
+rwkv6-3b and grok-1-314b are registered as data: the kernel bench
+(``benchmarks/torch_bench_kernels.py``) reads its attention, RG-LRU and
+WKV-6 widths from them.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("yi-6b",)
+ARCH_IDS = ("yi-6b", "recurrentgemma-2b", "rwkv6-3b", "grok-1-314b")
 
 
 def _module(arch: str):

@@ -1,10 +1,7 @@
-"""Build, bind and launch the CUDA delta-codec kernels (``csrc/ckpt_delta.cu``).
+"""Bind and launch the CUDA delta-codec kernels (``csrc/ckpt_delta.cu``).
 
-The source is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface and bound through ``ctypes`` (a build of seconds,
-where ``torch.utils.cpp_extension.load`` takes minutes).  The library
-lands in ``build/`` beside this file, named by the source's hash, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
+The source is built with ``nvcc`` at first use into ``build/`` beside
+this file and bound through ``ctypes`` (``kernels/_build.py``).  Nothing
 is compiled or loaded when the module is imported.
 
 Each launcher here runs one kernel on PyTorch's current stream into
@@ -20,82 +17,23 @@ written there too.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import NvccLibrary, ptr, raise_on, stream
 from repro_torch.kernels.ckpt_delta.ref import GROUP
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ckpt_delta.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the ckpt_delta kernels are "
-                           "built on a machine with the CUDA toolkit")
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libckpt_delta-{digest[:12]}.so"
-
-
-def build() -> Path:
-    """Compile the source unless a library of this exact source exists.
-    Returns the library path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a reader never sees half a file
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            sigs = {
-                "ckpt_flat_lossless_encode": [vp] * 6 + [i64, vp],
-                "ckpt_flat_int8_encode": [vp] * 5 + [i64, vp],
-                "ckpt_lossless_decode": [vp] * 4 + [i64, vp],
-                "ckpt_delta_decode": [vp] * 3 + [i64, vp],
-                "ckpt_lossless_encode": [vp] * 4 + [i64, vp],
-                "ckpt_int8_encode": [vp] * 4 + [i64, vp],
-            }
-            for name, argtypes in sigs.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
+LIBRARY = NvccLibrary(
+    Path(__file__).resolve().parent / "csrc" / "ckpt_delta.cu",
+    {"ckpt_flat_lossless_encode": [_vp] * 6 + [_i64, _vp],
+     "ckpt_flat_int8_encode": [_vp] * 5 + [_i64, _vp],
+     "ckpt_lossless_decode": [_vp] * 4 + [_i64, _vp],
+     "ckpt_delta_decode": [_vp] * 3 + [_i64, _vp],
+     "ckpt_lossless_encode": [_vp] * 4 + [_i64, _vp],
+     "ckpt_int8_encode": [_vp] * 4 + [_i64, _vp]})
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -122,19 +60,6 @@ def _groups_of(t: torch.Tensor) -> int:
     return ng
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(name: str, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {code}")
-
-
 def lossless_encode_groups(new: torch.Tensor, base: torch.Tensor):
     """Kernel #1: (d f32, r int32, group_changed i32, group_rnnz i32)."""
     ng = _groups_of(new)
@@ -145,10 +70,10 @@ def lossless_encode_groups(new: torch.Tensor, base: torch.Tensor):
     gc = torch.empty(ng, dtype=torch.int32, device=new.device)
     gz = torch.empty(ng, dtype=torch.int32, device=new.device)
     with torch.cuda.device(new.device):
-        code = _load().ckpt_flat_lossless_encode(
-            _ptr(new), _ptr(base), _ptr(d), _ptr(r), _ptr(gc), _ptr(gz),
-            ng, _stream(new))
-    _raise_on("flat_lossless_encode", code)
+        code = LIBRARY.load().ckpt_flat_lossless_encode(
+            ptr(new), ptr(base), ptr(d), ptr(r), ptr(gc), ptr(gz),
+            ng, stream(new))
+    raise_on("flat_lossless_encode", code)
     return d.reshape(-1), r, gc, gz
 
 
@@ -161,10 +86,10 @@ def int8_encode_groups(new: torch.Tensor, base: torch.Tensor):
     s = torch.empty(ng, dtype=torch.float32, device=new.device)
     gc = torch.empty(ng, dtype=torch.int32, device=new.device)
     with torch.cuda.device(new.device):
-        code = _load().ckpt_flat_int8_encode(
-            _ptr(new), _ptr(base), _ptr(q), _ptr(s), _ptr(gc), ng,
-            _stream(new))
-    _raise_on("flat_int8_encode", code)
+        code = LIBRARY.load().ckpt_flat_int8_encode(
+            ptr(new), ptr(base), ptr(q), ptr(s), ptr(gc), ng,
+            stream(new))
+    raise_on("flat_int8_encode", code)
     return q, s, gc
 
 
@@ -177,9 +102,9 @@ def lossless_decode(base: torch.Tensor, d: torch.Tensor,
     _check("r", r, torch.int32, base.numel())
     out = torch.empty(base.numel(), dtype=torch.float32, device=base.device)
     with torch.cuda.device(base.device):
-        code = _load().ckpt_lossless_decode(
-            _ptr(base), _ptr(d), _ptr(r), _ptr(out), ng, _stream(base))
-    _raise_on("lossless_decode", code)
+        code = LIBRARY.load().ckpt_lossless_decode(
+            ptr(base), ptr(d), ptr(r), ptr(out), ng, stream(base))
+    raise_on("lossless_decode", code)
     return out
 
 
@@ -190,9 +115,9 @@ def delta_decode(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     _check("scales", scales, torch.float32, ng)
     d = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        code = _load().ckpt_delta_decode(_ptr(q), _ptr(scales), _ptr(d), ng,
-                                         _stream(q))
-    _raise_on("delta_decode", code)
+        code = LIBRARY.load().ckpt_delta_decode(ptr(q), ptr(scales), ptr(d), ng,
+                                         stream(q))
+    raise_on("delta_decode", code)
     return d
 
 
@@ -205,9 +130,9 @@ def lossless_encode(new: torch.Tensor, base: torch.Tensor):
     d = torch.empty_like(new)
     r = torch.empty(new.numel(), dtype=torch.int32, device=new.device)
     with torch.cuda.device(new.device):
-        code = _load().ckpt_lossless_encode(
-            _ptr(new), _ptr(base), _ptr(d), _ptr(r), ng, _stream(new))
-    _raise_on("lossless_encode", code)
+        code = LIBRARY.load().ckpt_lossless_encode(
+            ptr(new), ptr(base), ptr(d), ptr(r), ng, stream(new))
+    raise_on("lossless_encode", code)
     return d.reshape(-1), r
 
 
@@ -220,7 +145,7 @@ def int8_encode(new: torch.Tensor, base: torch.Tensor):
     q = torch.empty(new.numel(), dtype=torch.int8, device=new.device)
     s = torch.empty(ng, dtype=torch.float32, device=new.device)
     with torch.cuda.device(new.device):
-        code = _load().ckpt_int8_encode(_ptr(new), _ptr(base), _ptr(q),
-                                        _ptr(s), ng, _stream(new))
-    _raise_on("delta_encode", code)
+        code = LIBRARY.load().ckpt_int8_encode(ptr(new), ptr(base), ptr(q),
+                                        ptr(s), ng, stream(new))
+    raise_on("delta_encode", code)
     return q, s

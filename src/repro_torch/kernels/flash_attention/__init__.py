@@ -1,0 +1,7 @@
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     launch_counts,
+                                                     reset_launch_counts)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "attention_ref", "launch_counts",
+           "reset_launch_counts"]

@@ -13,6 +13,8 @@ amax (4.5 % of random ones), so there an int8 scale may differ from the
 port's (and the oracle's) by one ulp and a q by one step in that group;
 every other output is still bit-equal.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -241,8 +243,9 @@ def test_kernel_launchers_reject_cpu_tensors_without_building():
         tkernel.lossless_encode_groups(x, x)
     with pytest.raises(ValueError, match="multiple of GROUP"):
         tkernel.int8_encode_groups(torch.zeros(GROUP + 1), x)
-    assert tkernel._lib is None
-    assert tkernel.library_path().parent == tkernel.BUILD_DIR
+    assert not tkernel.LIBRARY.loaded
+    assert tkernel.LIBRARY.path().parent == \
+        Path(tkernel.__file__).resolve().parent / "build"
 
 
 # -- per-leaf encodes (kernels #5 and #6) ------------------------------------
@@ -359,4 +362,4 @@ def test_per_leaf_wrappers_count_no_launch_on_the_cpu():
         tkernel.lossless_encode(torch.zeros(GROUP), torch.zeros(GROUP))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tkernel.int8_encode(torch.zeros(GROUP), torch.zeros(GROUP))
-    assert tkernel._lib is None
+    assert not tkernel.LIBRARY.loaded
