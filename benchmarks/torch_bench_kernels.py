@@ -18,21 +18,22 @@ plain version at the reference's tolerance.  Inputs are made with numpy
 from a seed: the reference's ``jax.random`` draws cannot be reproduced.
 
 ``card_table(device)`` is for a CUDA device only: the rows of
-``card_rows()`` at published model widths (batch 1, context 4096 for
-attention; batch 2 for the recurrences), read from the port's configs.
-Each row holds the kernel's time, the plain version's and, for attention
-where one PyTorch call computes the same function,
+``card_rows()`` at published model widths and contexts (``CONTEXT``;
+batch 1 for attention, batch 2 for the recurrences), read from the
+port's configs.  Each row holds the kernel's time, the plain version's
+and, for attention where one PyTorch call computes the same function,
 ``scaled_dot_product_attention``'s (CUDA events, in turns: plain, kernel,
 library, library, kernel, plain), the least time the card could take
 (``work`` / ``card_rates``) and the kernel's error against the plain
-version.  The library call is a yardstick only: the port never calls it.
+version, held to ``CARD_TOL`` (and, for attention, ``ROW_REL``).  The
+library call is a yardstick only: the port never calls it.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import Callable, NamedTuple
+from typing import Callable
 
 import numpy as np
 import torch
@@ -43,13 +44,30 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru, rwkv6
 from repro_torch.kernels.ckpt_delta import ref as ckpt_ref
 from repro_torch.kernels.flash_attention.ref import attention_mask
+from repro_torch.kernels.rates import Rates, card_rates
 from repro_torch.utils.trees import resolve_device
 
-CONTEXT = 4096          # published context of every row's model
+#: published context of each model, the card table's sequence length
+CONTEXT = {
+    "yi-6b": 4096,                # base models at 4K (arXiv:2403.04652)
+    "grok-1-314b": 8192,          # xai-org/grok-1 README: max length 8,192
+    "recurrentgemma-2b": 8192,    # trained on 8192-token sequences
+                                  # (arXiv:2404.07839)
+    "rwkv6-3b": 4096,             # World v2.1 3B, ctx4096 (arXiv:2404.05892)
+}
 SEED = 0
 REPS = 2                # timed calls per turn
-#: tolerances of tests/test_kernels.py, by dtype: (atol, rtol)
+#: tolerances of tests/test_kernels.py, by dtype: (atol, rtol); the
+#: reference holds its small-S sweeps to them
 TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-2, 5e-2)}
+#: the card table's tolerances.  A bfloat16 output is the rounding of an
+#: f32 value; kernel and plain version agree in f32 to ~1e-6, so they
+#: differ by at most one bf16 ulp, <= 2^-7 |ref|: within rtol 1e-2 and,
+#: per (b, s, h) row, within ROW_REL of the row's norm.  Far into a long
+#: causal row the values are ~0.03, which the elementwise atol alone would
+#: not hold; the row norm does.
+CARD_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (1e-2, 1e-2)}
+ROW_REL = 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -130,27 +148,6 @@ def bench_kernels(device="cuda") -> list:
 # the card table at published widths
 # ---------------------------------------------------------------------------
 
-class Rates(NamedTuple):
-    """Peak rates of one card (dense, NVIDIA's data sheet)."""
-    hbm: float          # bytes/s
-    fp32: float         # FLOP/s on the CUDA cores
-    bf16: float         # FLOP/s on the tensor cores
-
-
-def card_rates(name: str) -> Rates:
-    """The rates of the SKU ``name`` (``torch.cuda.get_device_name``)
-    names; an unknown card raises rather than guess."""
-    if "H200" in name:
-        return Rates(4.8e12, 67e12, 989e12)
-    if "H100" in name and "PCIe" in name:
-        return Rates(2.0e12, 51e12, 756e12)
-    if "H100" in name and "NVL" in name:
-        return Rates(3.9e12, 60e12, 835e12)
-    if "H100" in name:
-        return Rates(3.35e12, 67e12, 989e12)
-    raise ValueError(f"no published rates for card {name!r}")
-
-
 def card_rows() -> list:
     """The published-width rows, widths from the port's configs."""
     yi, grok, rg, rwkv = (get_config(a) for a in (
@@ -158,7 +155,7 @@ def card_rows() -> list:
 
     def attn(row, cfg, dtype, **mask):
         return {"row": row, "kernel": "flash_attention", "dtype": dtype,
-                "B": 1, "S": CONTEXT, "H": cfg.num_heads,
+                "B": 1, "S": CONTEXT[cfg.name], "H": cfg.num_heads,
                 "K": cfg.num_kv_heads, "hd": cfg.resolved_head_dim,
                 "causal": True, "window": mask.get("window", 0),
                 "softcap": mask.get("softcap", 0.0)}
@@ -167,24 +164,23 @@ def card_rows() -> list:
     return [
         attn("attn-yi", yi, torch.bfloat16),
         attn("attn-yi", yi, torch.float32),
-        attn("attn-grok", grok, torch.bfloat16,
-             softcap=grok.attn_logit_softcap),
-        attn("attn-rg", rg, torch.bfloat16,
-             window=rg.recurrent.window_size),
-        {"row": "rglru-rg", "kernel": "rglru_scan", "dtype": torch.float32,
-         "B": 2, "S": CONTEXT, "D": rg.recurrent.lru_width},
-        {"row": "rglru-rg", "kernel": "rglru_scan", "dtype": torch.bfloat16,
-         "B": 2, "S": CONTEXT, "D": rg.recurrent.lru_width},
+        *(attn("attn-grok", grok, dtype, softcap=grok.attn_logit_softcap)
+          for dtype in (torch.bfloat16, torch.float32)),
+        *(attn("attn-rg", rg, dtype, window=rg.recurrent.window_size)
+          for dtype in (torch.bfloat16, torch.float32)),
+        *({"row": "rglru-rg", "kernel": "rglru_scan", "dtype": dtype,
+           "B": 2, "S": CONTEXT[rg.name], "D": rg.recurrent.lru_width}
+          for dtype in (torch.float32, torch.bfloat16)),
         {"row": "wkv6-rwkv", "kernel": "wkv6", "dtype": torch.float32,
-         "B": 2, "S": CONTEXT, "H": rwkv.d_model // hs, "hs": hs},
+         "B": 2, "S": CONTEXT[rwkv.name], "H": rwkv.d_model // hs,
+         "hs": hs},
     ]
 
 
 def allowed_pairs(S: int, Skv: int, causal: bool, window: int) -> int:
     """(q, k) pairs the attention mask allows: the work the kernel must
     do, whatever tiles it skips or computes in part."""
-    return int(attention_mask(S, Skv, causal=causal,
-                                     window=window).sum())
+    return int(attention_mask(S, Skv, causal=causal, window=window).sum())
 
 
 def work(row: dict) -> tuple[float, float, str]:
@@ -205,8 +201,11 @@ def work(row: dict) -> tuple[float, float, str]:
         return 2.0 * n, 2 * n * size + 4 * n + 4 * B * row["D"], "fp32"
     H, hs = row["H"], row["hs"]
     n = B * S * H * hs
-    # kv, u*kv, +S, r*(.), +y; w*S, +kv: 7 per state element and step
-    flops = 7.0 * B * S * H * hs * hs
+    # y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i and S_ij <- w_i S_ij +
+    # k_i v_j: an FMA, a multiply and an FMA (5) per state element and
+    # step; the bonus term's r*u*k, its sum, v_j*(.) and + y_j are 5 per
+    # channel and step
+    flops = 5.0 * B * S * H * (hs * hs + hs)
     nbytes = 4 * (5 * n + H * hs + 2 * B * H * hs * hs)
     return flops, nbytes, "fp32"
 
@@ -252,12 +251,22 @@ def turns(kernel: Callable, plain: Callable, library=None) -> tuple:
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
-def max_err(out: torch.Tensor, ref: torch.Tensor, dtype) -> tuple:
-    """(max |out - ref|, within the dtype's tolerance)."""
-    atol, rtol = TOL[dtype]
+def max_err(out: torch.Tensor, ref: torch.Tensor, dtype,
+            tol: dict = TOL) -> tuple:
+    """(max |out - ref|, within the dtype's tolerance in ``tol``)."""
+    atol, rtol = tol[dtype]
     o, r = out.to(torch.float32), ref.to(torch.float32)
     diff = (o - r).abs()
     return float(diff.max()), bool((diff <= atol + rtol * r.abs()).all())
+
+
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest ||out - ref|| / ||ref|| over the rows of the last
+    dimension (one (b, s, h) row of an attention output)."""
+    o, r = out.to(torch.float32), ref.to(torch.float32)
+    num = torch.linalg.vector_norm(o - r, dim=-1)
+    den = torch.linalg.vector_norm(r, dim=-1).clamp_min(1e-30)
+    return float((num / den).max())
 
 
 def _attention_inputs(row, gen, dev):
@@ -275,8 +284,11 @@ def _card_row(row: dict, gen, dev) -> dict:
         opts = {x: row[x] for x in ("causal", "window", "softcap")}
         kernel = lambda: fa.flash_attention(q, k, v, **opts)  # noqa: E731
         plain = lambda: fa.attention_ref(q, k, v, **opts)     # noqa: E731
-        ref = plain()
-        out["max_abs_err"], ok = max_err(kernel(), ref, dtype)
+        ref, got = plain(), kernel()
+        out["max_abs_err"], ok = max_err(got, ref, dtype, CARD_TOL)
+        out["row_rel_err"] = row_rel_err(got, ref)
+        ok = ok and out["row_rel_err"] <= ROW_REL
+        del got
         library = None
         if not row["softcap"]:
             # SDPA's layout (B, H, S, hd), made outside the timed call
@@ -284,14 +296,14 @@ def _card_row(row: dict, gen, dev) -> dict:
             sdpa = torch.nn.functional.scaled_dot_product_attention
             if row["window"]:
                 mask = attention_mask(row["S"], row["S"], causal=True,
-                                             window=row["window"], device=dev)
+                                      window=row["window"], device=dev)
                 library = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa
                                        enable_gqa=True)
             else:
                 library = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa
                                        enable_gqa=True)
             out["library_max_abs_err"] = max_err(library().transpose(1, 2),
-                                              ref, dtype)[0]
+                                                  ref, dtype)[0]
         del ref
     elif kind == "rglru_scan":
         B, S, D = row["B"], row["S"], row["D"]
@@ -302,7 +314,7 @@ def _card_row(row: dict, gen, dev) -> dict:
         kernel = lambda: rglru.rglru_scan(a, b, h0)           # noqa: E731
         plain = lambda: rglru.rglru_ref(a, b, h0)             # noqa: E731
         kh, ph = kernel(), plain()
-        out["max_abs_err"], _ = max_err(kh, ph, dtype)
+        out["max_abs_err"], _ = max_err(kh, ph, dtype, CARD_TOL)
         out["mismatches"] = int((kh.view(torch.int32)
                                  != ph.view(torch.int32)).sum())
         ok = out["mismatches"] == 0                           # bit for bit
@@ -318,8 +330,8 @@ def _card_row(row: dict, gen, dev) -> dict:
         kernel = lambda: rwkv6.wkv6(r, k, v, w, u, s0)        # noqa: E731
         plain = lambda: rwkv6.wkv6_ref(r, k, v, w, u, s0)     # noqa: E731
         (ky, ks), (py, ps) = kernel(), plain()
-        ey, oky = max_err(ky, py, dtype)
-        es, oks = max_err(ks, ps, dtype)
+        ey, oky = max_err(ky, py, dtype, CARD_TOL)
+        es, oks = max_err(ks, ps, dtype, CARD_TOL)
         out["max_abs_err"], ok = max(ey, es), oky and oks
         library = None
         del ky, ks, py, ps
@@ -348,11 +360,13 @@ def card_table(device="cuda") -> list:
         table.append(res)
         lib = ("none" if res["library_ms"] is None
                else f"{res['library_ms']:.3f}")
-        print(f"{res['row']} {res['dtype']}: kernel {res['ms']:.3f} ms, "
-              f"plain {res['plain_ms']:.3f} ms, library {lib} ms, bound "
-              f"{res['bound_ms']:.4f} ms ({res['bound_by']}), max_abs_err "
-              f"{res['max_abs_err']:.3g}, validated={res['validated']}",
-              flush=True)
+        rel = (f", row_rel_err {res['row_rel_err']:.3g}"
+               if "row_rel_err" in res else "")
+        print(f"{res['row']} S{res['S']} {res['dtype']}: kernel "
+              f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, library "
+              f"{lib} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"max_abs_err {res['max_abs_err']:.3g}{rel}, "
+              f"validated={res['validated']}", flush=True)
     return table
 
 

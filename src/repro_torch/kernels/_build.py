@@ -107,17 +107,12 @@ def raise_on(name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {code}")
 
 
-def check_cuda(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype],
-               shape: Optional[Sequence[int]] = None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
-    (and of ``shape``, where given)."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be one of {list(dtypes)}, got "
-                        f"{t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
+def require_cuda(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor is a contiguous CUDA tensor: the launchers
+    pass raw pointers.  Shapes, dtypes and widths are the ``ops.py``
+    wrappers' to check, on every device."""
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

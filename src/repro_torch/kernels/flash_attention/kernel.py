@@ -3,11 +3,12 @@
 
 Built with ``nvcc`` at first use into ``build/`` beside this file and
 bound through ``ctypes`` (``kernels/_build.py``); nothing is compiled or
-loaded when the module is imported.  The launcher validates its inputs
-(CUDA, contiguous, one dtype of ``DTYPES``, GQA shapes, hd in
-``HEAD_DIMS``), runs the kernel on PyTorch's current stream into an
-output it allocates, and raises if the launch was refused.  The kernel
-chooses its own tiles and takes any sequence length.
+loaded when the module is imported.  The launcher takes the inputs as
+``ops.flash_attention`` checked them (GQA shapes, one dtype of
+``DTYPES``, hd in ``HEAD_DIMS``) and refuses only what is not a
+contiguous CUDA tensor; it runs the kernel on PyTorch's current stream
+into an output it allocates, and raises if the launch was refused.  The
+kernel chooses its own tiles and takes any sequence length.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import (NvccLibrary, check_cuda, ptr,
-                                        raise_on, stream)
+from repro_torch.kernels._build import (NvccLibrary, ptr, raise_on,
+                                        require_cuda, stream)
 
 _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARY = NvccLibrary(
@@ -36,18 +37,9 @@ HEAD_DIMS = (64, 128, 256)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, softcap: float) -> torch.Tensor:
     """Kernel #7: (B, S, H, hd) in q's dtype."""
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("q must be (B, S, H, hd) and k, v (B, Skv, K, hd)")
+    require_cuda(q=q, k=k, v=v)
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if K == 0 or H % K or tuple(k.shape) != (B, Skv, K, hd):
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} are "
-                         f"not a GQA pair")
-    check_cuda("q", q, tuple(DTYPES))
-    check_cuda("k", k, (q.dtype,))
-    check_cuda("v", v, (q.dtype,), k.shape)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

@@ -2,10 +2,11 @@
 
 Built with ``nvcc`` at first use into ``build/`` beside this file and
 bound through ``ctypes`` (``kernels/_build.py``); nothing is compiled or
-loaded when the module is imported.  The launcher validates its inputs
-(CUDA, contiguous, a/b float32 or bfloat16 of one shape, h0 float32),
-runs the kernel on PyTorch's current stream into an output it allocates,
-and raises if the launch was refused.
+loaded when the module is imported.  The launcher takes the inputs as
+``ops.rglru_scan`` checked them (a/b of one shape and one dtype of
+``DTYPES``, h0 (B, D) float32) and refuses only what is not a contiguous
+CUDA tensor; it runs the kernel on PyTorch's current stream into an
+output it allocates, and raises if the launch was refused.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import (NvccLibrary, check_cuda, ptr,
-                                        raise_on, stream)
+from repro_torch.kernels._build import (NvccLibrary, ptr, raise_on,
+                                        require_cuda, stream)
 
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 LIBRARY = NvccLibrary(
@@ -28,12 +29,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """Kernel #8: h (B, S, D) float32 with h_t = a_t * h_{t-1} + b_t."""
-    if a.dim() != 3:
-        raise ValueError(f"a must be (B, S, D), got {tuple(a.shape)}")
+    require_cuda(a=a, b=b, h0=h0)
     B, S, D = a.shape
-    check_cuda("a", a, tuple(DTYPES))
-    check_cuda("b", b, (a.dtype,), a.shape)
-    check_cuda("h0", h0, (torch.float32,), (B, D))
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         code = LIBRARY.load().rglru_scan(ptr(a), ptr(b), ptr(h0), ptr(h),

@@ -2,10 +2,11 @@
 
 Built with ``nvcc`` at first use into ``build/`` beside this file and
 bound through ``ctypes`` (``kernels/_build.py``); nothing is compiled or
-loaded when the module is imported.  The launcher validates its inputs
-(CUDA, contiguous float32, the shapes below, hs in ``HEAD_SIZES``), runs
-the kernel on PyTorch's current stream into outputs it allocates, and
-raises if the launch was refused.
+loaded when the module is imported.  The launcher takes the inputs as
+``ops.wkv6`` checked and cast them (float32, the shapes below, hs in
+``HEAD_SIZES``) and refuses only what is not a contiguous CUDA tensor;
+it runs the kernel on PyTorch's current stream into outputs it
+allocates, and raises if the launch was refused (as it is for S = 0).
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import (NvccLibrary, check_cuda, ptr,
-                                        raise_on, stream)
+from repro_torch.kernels._build import (NvccLibrary, ptr, raise_on,
+                                        require_cuda, stream)
 
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 LIBRARY = NvccLibrary(
@@ -28,18 +29,8 @@ HEAD_SIZES = (16, 32, 64)
 
 def wkv6(r, k, v, w, u, s0):
     """Kernel #9: (y (B, S, H, hs) f32, S_final (B, H, hs, hs) f32)."""
-    if r.dim() != 4:
-        raise ValueError(f"r must be (B, S, H, hs), got {tuple(r.shape)}")
+    require_cuda(r=r, k=k, v=v, w=w, u=u, s0=s0)
     B, S, H, hs = r.shape
-    if hs not in HEAD_SIZES:
-        raise ValueError(f"head size {hs} not in {HEAD_SIZES}")
-    if S == 0:
-        raise ValueError("wkv6 needs at least one time step")
-    f32 = (torch.float32,)
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        check_cuda(name, t, f32, r.shape)
-    check_cuda("u", u, f32, (H, hs))
-    check_cuda("s0", s0, f32, (B, H, hs, hs))
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s = torch.empty(s0.shape, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

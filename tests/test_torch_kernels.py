@@ -31,6 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru, rwkv6
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.rates import card_rates
 from repro_torch.kernels.rglru import kernel as rglru_kernel
 from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
 
@@ -265,25 +266,32 @@ def test_bench_kernels_on_cpu_validates_four_rows():
 
 
 def test_card_table_rows_and_bounds():
-    """The published widths come from the configs; the bound counts the
-    allowed (q, k) pairs of each mask and takes the peak of the dtype."""
+    """The published widths come from the configs and the contexts from
+    each model's publication; the bound counts the allowed (q, k) pairs of
+    each mask and takes the peak of the dtype."""
     bench = _bench()
     rows = {(r["row"], str(r["dtype"])): r for r in bench.card_rows()}
+    assert len(rows) == len(bench.card_rows()) == 9
     yi = rows[("attn-yi", "torch.bfloat16")]
     assert (yi["H"], yi["K"], yi["hd"], yi["S"]) == (32, 4, 128, 4096)
-    assert rows[("attn-grok", "torch.bfloat16")]["softcap"] == 30.0
-    rg = rows[("attn-rg", "torch.bfloat16")]
-    assert (rg["H"], rg["K"], rg["hd"], rg["window"]) == (10, 1, 256, 2048)
-    assert rows[("rglru-rg", "torch.float32")]["D"] == 2560
+    for dtype in ("torch.bfloat16", "torch.float32"):
+        grok = rows[("attn-grok", dtype)]
+        assert (grok["H"], grok["K"], grok["S"], grok["softcap"]) == \
+            (48, 8, 8192, 30.0)
+        rg = rows[("attn-rg", dtype)]
+        assert (rg["H"], rg["K"], rg["hd"], rg["window"], rg["S"]) == \
+            (10, 1, 256, 2048, 8192)
+    lru_row = rows[("rglru-rg", "torch.float32")]
+    assert (lru_row["D"], lru_row["S"]) == (2560, 8192)
     wkv = rows[("wkv6-rwkv", "torch.float32")]
-    assert (wkv["H"], wkv["hs"]) == (40, 64)
+    assert (wkv["H"], wkv["hs"], wkv["S"]) == (40, 64, 4096)
 
     S = 4096
     assert bench.allowed_pairs(S, S, True, 0) == S * (S + 1) // 2
     assert bench.allowed_pairs(S, S, True, 2048) == \
         2048 * 2049 // 2 + (S - 2048) * 2048
     assert bench.allowed_pairs(S, S, False, 0) == S * S
-    rates = bench.card_rates("NVIDIA H100 80GB HBM3")
+    rates = card_rates("NVIDIA H100 80GB HBM3")
     flops, nbytes, peak = bench.work(yi)
     assert flops == 4 * 32 * 128 * (S * (S + 1) // 2) and peak == "bf16"
     assert nbytes == 2 * (2 * S * 32 * 128 + 2 * S * 4 * 128)
@@ -292,10 +300,47 @@ def test_card_table_rows_and_bounds():
     assert b["bound_ms"] == pytest.approx(flops / 989e12 * 1e3)
     f32 = bench.bound(rows[("attn-yi", "torch.float32")], rates)
     assert f32["bound_ms"] == pytest.approx(flops / 67e12 * 1e3)
-    lru = bench.bound(rows[("rglru-rg", "torch.float32")], rates)
+    lru = bench.bound(lru_row, rates)
     assert lru["bound_by"] == "bytes"
-    assert lru["bytes"] == 3 * 4 * 2 * S * 2560 + 4 * 2 * 2560
+    assert lru["bytes"] == 3 * 4 * 2 * 8192 * 2560 + 4 * 2 * 2560
     with pytest.raises(ValueError, match="no published rates"):
-        bench.card_rates("NVIDIA A100-SXM4-80GB")
+        card_rates("NVIDIA A100-SXM4-80GB")
     with pytest.raises(ValueError, match="CUDA device"):
         bench.card_table("cpu")
+
+
+def test_wkv6_bound_counts_five_flops_per_state_element():
+    """y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i and S_ij <- w_i S_ij +
+    k_i v_j: 5 flops per state element and step plus 5 per channel; at
+    rwkv6-3b's widths the bytes, not the operations, bound the kernel."""
+    bench = _bench()
+    row = next(r for r in bench.card_rows() if r["kernel"] == "wkv6")
+    B, S, H, hs = row["B"], row["S"], row["H"], row["hs"]
+    flops, nbytes, peak = bench.work(row)
+    assert flops == 5 * B * S * H * hs * hs + 5 * B * S * H * hs
+    assert nbytes == 4 * (5 * B * S * H * hs + H * hs + 2 * B * H * hs * hs)
+    assert peak == "fp32"
+    b = bench.bound(row, card_rates("NVIDIA H100 80GB HBM3"))
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+def test_card_tolerance_holds_one_ulp_and_refuses_a_wrong_row():
+    """The card table holds bfloat16 attention to 1e-2 + 1e-2 |ref| and
+    1e-2 of each row's norm: two roundings of one f32 value (one bf16 ulp
+    apart) pass, a 3 % error on one row of small values does not."""
+    bench = _bench()
+    rng = np.random.default_rng(5)
+    ref = (torch.from_numpy(rng.standard_normal((1, 64, 2, 128))
+                            .astype(np.float32)) * 0.03).to(torch.bfloat16)
+    # every element one ulp larger in magnitude (sign and magnitude bits)
+    one_ulp = (ref.view(torch.int16) + 1).view(torch.bfloat16)
+    assert bool((one_ulp.abs() > ref.abs()).all())
+    assert bench.max_err(one_ulp, ref, torch.bfloat16, bench.CARD_TOL)[1]
+    assert bench.row_rel_err(one_ulp, ref) <= bench.ROW_REL
+    wrong = ref.clone()
+    wrong[0, 40, 1] = (ref[0, 40, 1].to(torch.float32) * 1.03
+                       ).to(torch.bfloat16)
+    assert bench.max_err(wrong, ref, torch.bfloat16, bench.CARD_TOL)[1]
+    assert bench.row_rel_err(wrong, ref) > bench.ROW_REL
+    assert bench.TOL[torch.bfloat16] == (5e-2, 5e-2)
