@@ -362,8 +362,12 @@ def card_table(device="cuda") -> list:
                else f"{res['library_ms']:.3f}")
         rel = (f", row_rel_err {res['row_rel_err']:.3g}"
                if "row_rel_err" in res else "")
+        rate = (f" ({res['flops'] / res['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{res['bound_ms'] / res['ms']:.1%} of the bound)"
+                if row["kernel"] == "flash_attention" else "")
         print(f"{res['row']} S{res['S']} {res['dtype']}: kernel "
-              f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, library "
+              f"{res['ms']:.3f} ms{rate}, plain {res['plain_ms']:.3f} ms, "
+              f"library "
               f"{lib} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
               f"max_abs_err {res['max_abs_err']:.3g}{rel}, "
               f"validated={res['validated']}", flush=True)

@@ -31,9 +31,10 @@ Phases, in order (any failure exits non-zero, before the result line):
                one ``{"seqmix": [...]}`` line.  Then each of the three at
                every shape of the reference's kernel sweeps
                (``tests/test_kernels.py``) at its tolerances: #7 within
-               2e-4 (float32) / 5e-2 (bfloat16), #8 bit for bit, #9 within
-               2e-4, including the two-call state carry.  Its tensors are
-               freed before the calibration;
+               2e-4 (float32) / 5e-2 (bfloat16), also with fewer keys than
+               queries (Skv < S, window 64, where some rows see no key), #8
+               bit for bit, #9 within 2e-4, including the two-call state
+               carry.  Its tensors are freed before the calibration;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -147,6 +148,10 @@ HEADLINE = {"flash_attention": ("attn-yi", "bfloat16"),
 ATTN_SWEEP = ((1, 128, 4, 4, 64), (2, 256, 4, 2, 64), (1, 256, 8, 1, 128),
               (1, 512, 2, 2, 256), (1, 200, 4, 2, 128), (1, 77, 2, 1, 64))
 ATTN_MASKS = ((True, 0), (True, 64), (False, 0))
+# (B, S, Skv, H, K, hd) with fewer keys than queries: under window 64 the
+# rows q >= Skv + 63 see no key and return the mean of v
+ATTN_SKV_SWEEP = ((1, 256, 128, 4, 2, 64), (1, 200, 77, 2, 1, 128))
+ATTN_SKV_MASKS = ((True, 64), (False, 64))
 RGLRU_SWEEP = ((1, 128, 128), (2, 512, 256), (1, 256, 512))
 WKV6_SWEEP = ((1, 128, 2, 16), (2, 256, 2, 32), (1, 128, 4, 64))
 
@@ -474,13 +479,16 @@ def per_leaf_phase(dev, hbm: float, flops: float, leaves: list) -> dict:
 def sweep_checks(dev) -> dict:
     """Kernels #7-#9 against their plain versions at every shape of the
     reference's sweeps: #7 within 2e-4 (float32) / 5e-2 (bfloat16) with
-    each mask and with softcap 30, #8 bit for bit in both dtypes, #9
+    each mask and with softcap 30, and at Skv < S under window 64, where
+    some rows see no key; the bf16 kernel's softcap quotient against IEEE
+    division (``div_cap_divisors``); #8 bit for bit in both dtypes, #9
     within 2e-4, and the two-call state carry of #9 (one call over 256
     steps against two of 128, the second from the first's state) within
     the reference's 1e-4.  Returns each kernel's worst error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, rwkv6
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     max_err = _module(KBENCH).max_err
     f32, bf16 = torch.float32, torch.bfloat16
@@ -496,15 +504,19 @@ def sweep_checks(dev) -> dict:
                   f"{what}: max_abs_err {err}")
         worst[name] = max(worst[name], err)
 
-    cases = [(shape, dtype, causal, window, 0.0) for shape in ATTN_SWEEP
+    cases = [((B, S, S, H, K, hd), dtype, causal, window, 0.0)
+             for B, S, H, K, hd in ATTN_SWEEP
              for dtype in (f32, bf16) for causal, window in ATTN_MASKS]
-    cases.append(((1, 128, 4, 2, 64), f32, True, 0, 30.0))
-    for (B, S, H, K, hd), dtype, causal, window, cap in cases:
-        q, k, v = (rn(B, S, n, hd).to(dtype) for n in (H, K, K))
+    cases.append(((1, 128, 128, 4, 2, 64), f32, True, 0, 30.0))
+    cases += [(shape, dtype, causal, window, 0.0) for shape in ATTN_SKV_SWEEP
+              for dtype in (f32, bf16) for causal, window in ATTN_SKV_MASKS]
+    for (B, S, Skv, H, K, hd), dtype, causal, window, cap in cases:
+        q = rn(B, S, H, hd).to(dtype)
+        k, v = (rn(B, Skv, K, hd).to(dtype) for _ in range(2))
         opts = dict(causal=causal, window=window, softcap=cap)
         hold("flash_attention", fa.flash_attention(q, k, v, **opts),
              fa.attention_ref(q, k, v, **opts), dtype,
-             f"B{B} S{S} H{H} K{K} hd{hd} {dtype} {opts}")
+             f"B{B} S{S} Skv{Skv} H{H} K{K} hd{hd} {dtype} {opts}")
     for B, S, D in RGLRU_SWEEP:
         for dtype in (f32, bf16):
             a = (torch.sigmoid(rn(B, S, D)) * 0.2 + 0.79).to(dtype)
@@ -540,11 +552,30 @@ def sweep_checks(dev) -> dict:
     py, ps = rwkv6.wkv6_ref(r, k, v, w, u, s0)
     hold("wkv6", y_all, py, f32, "state-carry sequence y")
     hold("wkv6", s2, ps, f32, "state carried over two calls")
+    divisors = div_cap_divisors()
+    bad = fa_kernel.check_div_cap(torch.tensor(divisors, device=dev))
+    check(int(bad.sum()) == 0, f"bf16 softcap quotient differs from IEEE "
+                               f"division: {dict(zip(divisors, bad.tolist()))}")
     torch.cuda.synchronize()
     log(f"sweeps: {len(cases)} attention cases, {2 * len(RGLRU_SWEEP)} "
         f"RG-LRU, {len(WKV6_SWEEP)} WKV-6 and the state carry "
-        f"({carry:.3g}) within tolerance; worst errors {worst}")
+        f"({carry:.3g}) within tolerance; worst errors {worst}; the bf16 "
+        f"softcap quotient equals IEEE division for every float in "
+        f"[2^-100, 2^100] at {len(divisors)} divisors")
     return worst
+
+
+def div_cap_divisors() -> list:
+    """The softcaps the configs use, the ends of the range the bf16
+    kernel takes ([2^-20, 2^20]) and 24 log-uniform divisors across it
+    from a seed, each rounded to float32."""
+    import numpy as np
+    from repro_torch.configs import ARCH_IDS, get_config
+    caps = {get_config(a).attn_logit_softcap for a in ARCH_IDS} - {0.0}
+    rng = np.random.default_rng(11)
+    spread = 2.0 ** rng.uniform(-20, 20, 24)
+    return sorted(float(np.float32(x)) for x in
+                  {*caps, 2.0 ** -20, 2.0 ** 20, 1 / 3, 7.7, *spread})
 
 
 def seqmix_phase(dev) -> tuple[dict, list]:

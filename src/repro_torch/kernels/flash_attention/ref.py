@@ -27,6 +27,18 @@ def attention_mask(S: int, Skv: int, *, causal: bool, window: int,
     return allow
 
 
+def first_keyless_row(S: int, Skv: int, *, window: int) -> int:
+    """The first query row that the mask allows no key, or S if every row
+    sees one.  Row q may see keys [max(0, q - window + 1), min(Skv - 1,
+    causal ? q : Skv - 1)] (window <= 0: no lower bound), which is empty
+    exactly when window > 0 and q >= Skv + window - 1, causal or not.
+    Such a row softmaxes its -1e30 scores to a uniform row: the mean of v
+    over all Skv keys."""
+    if window <= 0:
+        return S
+    return min(S, Skv + window - 1)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   softcap: float = 0.0) -> torch.Tensor:

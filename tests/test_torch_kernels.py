@@ -31,6 +31,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru, rwkv6
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     first_keyless_row)
 from repro_torch.kernels.rates import card_rates
 from repro_torch.kernels.rglru import kernel as rglru_kernel
 from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
@@ -94,6 +96,56 @@ def test_attention_ref_softcap_matches_jax():
         _pair(_normal(rng, 1, 128, n, 64), "float32") for n in (4, 2, 2))
     _close(fa.attention_ref(tq, tk, tv, causal=True, softcap=30.0),
            jax_attn(jq, jk, jv, causal=True, softcap=30.0))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rows_with_no_key_return_the_mean_of_v(causal):
+    """Fewer keys than queries under a window: rows q >= Skv + window - 1
+    see no key.  The JAX reference fills masked scores with -1e30, so such
+    a row softmaxes to a uniform row, the mean of v over all Skv keys; the
+    port's plain version agrees on every row.  The Pallas kernel agrees on
+    every row that sees a key, and without the causal mask on every row.
+    With it, the Pallas kernel skips the tiles it finds fully masked: a
+    keyless row whose tiles were all skipped comes out 0, not the mean
+    (the port's CUDA kernel follows the reference's oracle)."""
+    B, S, Skv, H, K, hd, window = 1, 256, 128, 2, 1, 64, 64
+    rng = np.random.default_rng(7)
+    q = _normal(rng, B, S, H, hd)
+    k, v = _normal(rng, B, Skv, K, hd), _normal(rng, B, Skv, K, hd)
+    opts = dict(causal=causal, window=window)
+    want = np.asarray(jax_attn(q, k, v, **opts))
+    got = fa.attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                           **opts).numpy()
+    pallas = np.asarray(jax_fa(q, k, v, block_q=64, block_kv=64,
+                               interpret=True, **opts))
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+    first = first_keyless_row(S, Skv, window=window)
+    assert first == Skv + window - 1 < S
+    mean = v.mean(axis=1)[:, None, :, :].repeat(H // K, axis=2)
+    for out in (got, want):
+        np.testing.assert_allclose(out[:, first:], np.broadcast_to(
+            mean, out[:, first:].shape), **TOL["float32"])
+    np.testing.assert_allclose(pallas[:, :first], want[:, :first],
+                               **TOL["float32"])
+    if not causal:
+        np.testing.assert_allclose(pallas, want, **TOL["float32"])
+    else:
+        # q tile [192, 256) finds both 64-key tiles fully masked
+        assert not np.any(pallas[:, 192:])
+        assert np.abs(want[:, 192:]).max() > 0.05
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_first_keyless_row_matches_the_mask(causal):
+    for S, Skv, window in [(8, 8, 0), (8, 8, 3), (16, 5, 4), (16, 5, 1),
+                           (7, 12, 2), (33, 9, 9), (20, 1, 1), (20, 3, 0)]:
+        allow = attention_mask(S, Skv, causal=causal, window=window)
+        none = (~allow.any(dim=1)).nonzero()
+        want = int(none[0]) if len(none) else S
+        assert first_keyless_row(S, Skv, window=window) == want, \
+            (S, Skv, window)
+        # the keyless rows are exactly the rows from that one on
+        assert bool((~allow.any(dim=1))[want:].all())
 
 
 def _rglru_inputs(rng, B, S, D):
