@@ -362,9 +362,10 @@ def card_table(device="cuda") -> list:
                else f"{res['library_ms']:.3f}")
         rel = (f", row_rel_err {res['row_rel_err']:.3g}"
                if "row_rel_err" in res else "")
-        rate = (f" ({res['flops'] / res['ms'] / 1e9:.1f} TFLOP/s, "
-                f"{res['bound_ms'] / res['ms']:.1%} of the bound)"
-                if row["kernel"] == "flash_attention" else "")
+        rate = (f"{res['flops'] / res['ms'] / 1e9:.1f} TFLOP/s"
+                if row["kernel"] == "flash_attention" else
+                f"{res['bytes'] / res['ms'] / 1e6:.0f} GB/s")
+        rate = f" ({rate}, {res['bound_ms'] / res['ms']:.1%} of the bound)"
         print(f"{res['row']} S{res['S']} {res['dtype']}: kernel "
               f"{res['ms']:.3f} ms{rate}, plain {res['plain_ms']:.3f} ms, "
               f"library "

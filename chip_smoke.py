@@ -32,9 +32,11 @@ Phases, in order (any failure exits non-zero, before the result line):
                every shape of the reference's kernel sweeps
                (``tests/test_kernels.py``) at its tolerances: #7 within
                2e-4 (float32) / 5e-2 (bfloat16), also with fewer keys than
-               queries (Skv < S, window 64, where some rows see no key), #8
-               bit for bit, #9 within 2e-4, including the two-call state
-               carry.  Its tensors are freed before the calibration;
+               queries (Skv < S, window 64, where some rows see no key)
+               and in float32 at its own tile edges, #8 bit for bit, also
+               at its ragged edges, #9 within 2e-4, including the
+               two-call state carry.  Its tensors are freed before the
+               calibration;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -152,7 +154,23 @@ ATTN_MASKS = ((True, 0), (True, 64), (False, 0))
 # rows q >= Skv + 63 see no key and return the mean of v
 ATTN_SKV_SWEEP = ((1, 256, 128, 4, 2, 64), (1, 200, 77, 2, 1, 128))
 ATTN_SKV_MASKS = ((True, 64), (False, 64))
-RGLRU_SWEEP = ((1, 128, 128), (2, 512, 256), (1, 256, 512))
+# float32 attention at the f32 kernel's edges (2e-4): S one past its 128-row
+# tile and, at hd 256, not a multiple of its 64-row tile; Skv not a
+# multiple of its 64-key tile, below and above S; the softcap with and
+# without a window, at hd 128 and 256.  ((B, S, Skv, H, K, hd), causal,
+# window, softcap)
+ATTN_F32_EDGES = (((2, 129, 129, 2, 2, 128), True, 0, 0.0),
+                  ((1, 300, 300, 2, 1, 256), True, 0, 0.0),
+                  ((1, 200, 100, 2, 2, 128), False, 0, 0.0),
+                  ((1, 130, 190, 2, 1, 256), False, 0, 30.0),
+                  ((1, 300, 300, 2, 1, 256), True, 100, 30.0),
+                  ((1, 333, 333, 4, 2, 128), True, 0, 30.0))
+# the reference's RG-LRU shapes, then the kernel's ragged edges: S 8193
+# at rglru-rg's width (not a multiple of the time tile), D 37 (rows not
+# whole 16-byte chunks), B.D 8 (fewer chains than one full-width block),
+# D 2568 (the last channel block narrow) and bf16 D 2561 (element loads)
+RGLRU_SWEEP = ((1, 128, 128), (2, 512, 256), (1, 256, 512), (2, 8193, 2560),
+               (2, 300, 37), (1, 257, 8), (2, 1000, 2568), (1, 777, 2561))
 WKV6_SWEEP = ((1, 128, 2, 16), (2, 256, 2, 32), (1, 128, 4, 64))
 
 
@@ -479,9 +497,11 @@ def per_leaf_phase(dev, hbm: float, flops: float, leaves: list) -> dict:
 def sweep_checks(dev) -> dict:
     """Kernels #7-#9 against their plain versions at every shape of the
     reference's sweeps: #7 within 2e-4 (float32) / 5e-2 (bfloat16) with
-    each mask and with softcap 30, and at Skv < S under window 64, where
-    some rows see no key; the bf16 kernel's softcap quotient against IEEE
-    division (``div_cap_divisors``); #8 bit for bit in both dtypes, #9
+    each mask and with softcap 30, at Skv < S under window 64, where some
+    rows see no key, and in float32 at the f32 kernel's tile edges
+    (``ATTN_F32_EDGES``); the softcap quotient both kernels take against
+    IEEE division (``div_cap_divisors``); #8 bit for bit in both dtypes
+    at the reference's shapes and the kernel's ragged edges, #9
     within 2e-4, and the two-call state carry of #9 (one call over 256
     steps against two of 128, the second from the first's state) within
     the reference's 1e-4.  Returns each kernel's worst error."""
@@ -510,6 +530,8 @@ def sweep_checks(dev) -> dict:
     cases.append(((1, 128, 128, 4, 2, 64), f32, True, 0, 30.0))
     cases += [(shape, dtype, causal, window, 0.0) for shape in ATTN_SKV_SWEEP
               for dtype in (f32, bf16) for causal, window in ATTN_SKV_MASKS]
+    cases += [(shape, f32, causal, window, cap)
+              for shape, causal, window, cap in ATTN_F32_EDGES]
     for (B, S, Skv, H, K, hd), dtype, causal, window, cap in cases:
         q = rn(B, S, H, hd).to(dtype)
         k, v = (rn(B, Skv, K, hd).to(dtype) for _ in range(2))
@@ -554,20 +576,20 @@ def sweep_checks(dev) -> dict:
     hold("wkv6", s2, ps, f32, "state carried over two calls")
     divisors = div_cap_divisors()
     bad = fa_kernel.check_div_cap(torch.tensor(divisors, device=dev))
-    check(int(bad.sum()) == 0, f"bf16 softcap quotient differs from IEEE "
+    check(int(bad.sum()) == 0, f"softcap quotient differs from IEEE "
                                f"division: {dict(zip(divisors, bad.tolist()))}")
     torch.cuda.synchronize()
     log(f"sweeps: {len(cases)} attention cases, {2 * len(RGLRU_SWEEP)} "
         f"RG-LRU, {len(WKV6_SWEEP)} WKV-6 and the state carry "
-        f"({carry:.3g}) within tolerance; worst errors {worst}; the bf16 "
+        f"({carry:.3g}) within tolerance; worst errors {worst}; the "
         f"softcap quotient equals IEEE division for every float in "
         f"[2^-100, 2^100] at {len(divisors)} divisors")
     return worst
 
 
 def div_cap_divisors() -> list:
-    """The softcaps the configs use, the ends of the range the bf16
-    kernel takes ([2^-20, 2^20]) and 24 log-uniform divisors across it
+    """The softcaps the configs use, the ends of the range the kernels
+    take ([2^-20, 2^20]) and 24 log-uniform divisors across it
     from a seed, each rounded to float32."""
     import numpy as np
     from repro_torch.configs import ARCH_IDS, get_config

@@ -43,14 +43,38 @@
 // tail does not idle the card.  TMA fills rows past S with zeros; keys
 // past Skv are masked all the same.
 //
-// float32: the CUDA cores, so the 2e-4 gate holds (TF32 would not).  One
-// block of 256 threads per (q tile of 64 rows, head, batch) streams
-// 32-key tiles through shared memory as float32; thread (ty, tx) = (tid /
-// 16, tid % 16) owns query rows 4 ty .. 4 ty + 3, scores at key columns
-// tx + 16 c and output at head columns tx + 16 j, so a row's statistics
-// stay with the 16 lanes of one half warp.  q and k rows are padded by 4
-// floats so the 16-byte reads of 16 different k rows fall in distinct
-// banks.  141,824 bytes of shared memory at hd 256.
+// float32 (namespace cc): the CUDA cores (67 TFLOP/s of f32 FMA), so the
+// 2e-4 gate holds; TF32 or split-TF32 products on the tensor cores would
+// not be exact f32 FMAs.  What held the kernel this one replaced at 20-23
+// TFLOP/s: 4 x 2 score tiles per thread, so shared memory, not the FMA
+// units, set the pace; scalar loads through registers with no overlap of
+// loads and math; a mask and softcap test on every score; q tiles in
+// forward order.  The design: one block of 256 threads, 16 x 16 (rg, cg),
+// per (q tile, head, batch), BQ = 128 query rows (64 at hd 256) against
+// BKV = 64-key tiles.  q is stored transposed (q^T [hd][BQ]), k row-major
+// with rows padded by 4 floats, v row-major, P transposed (P^T [BKV][BQ +
+// 4]).  S = q k^T runs as an outer product per thread: rows RT rg .. + RT
+// - 1 (RT = BQ / 16) by keys cg + 16 j (4 keys): per 4 head columns, 4
+// float4 reads of k and RT / 4 float4 reads of q^T per column feed 16 RT
+// FMAs.  O += P v runs as an outer product of the same rows by head
+// columns 4 cg + 64 i .. + 3 (hd / 16 columns): per key, RT / 4 float4
+// reads of P^T and hd / 64 of v feed RT hd / 16 FMAs.  A warp holds 4
+// rg by 8 cg, so each of those reads touches at most 8 distinct 16-byte
+// chunks in distinct banks (the padding staggers k's rows): one wavefront.
+// A row's 16 score columns lie in two warps: the row max is 3 shuffles
+// and one exchange through shared memory ahead of the barrier that frees
+// the k tile; the rescale stays in registers and the row sum per thread
+// until the end.  k and v tiles come by cp.async (16-byte copies, zeros
+// past Skv) into single buffers that alternate: v of tile i loads during
+// S_i (issued after the barrier that opens tile i, which also ends P v of
+// tile i - 1), k of tile i + 1 during the softmax and P_i v_i (issued
+// after the barrier that frees k_i); three barriers a tile.  The softcap
+// (a kernel template argument) and the mask (per tile: a tile wholly
+// inside every row's allowed range takes no per-score test) are
+// compile-time cases.  Shared memory 101,376 bytes at hd 64 (two blocks
+// an SM, 128 registers), 166,912 at hd 128 (214 registers) and 215,552
+// at hd 256 (BQ 64 keeps the 64 accumulators of hd 128; 168 registers);
+// no spills (nvcc -Xptxas -v with the build's flags).
 //
 // Both: the causal bound and the window bound decide the first and last
 // key tile of a q tile, so fully masked tiles are never loaded.  Masked
@@ -63,8 +87,9 @@
 // below 2^-126 flushes to 0, which a row sum of at least 1 cannot see)
 // with log2(e) folded into the scale, and rounds P to bf16 before P v.
 // The softcap is cap * tanhf(s / cap) with the correctly rounded
-// quotient (the f32 kernel: __fdiv_rn; the bf16 kernel: div_cap below,
-// for cap in [2^-20, 2^20]); no fast-math anywhere.  Element offsets are
+// quotient (div_cap below, for cap in [2^-20, 2^20], in both kernels);
+// no fast-math anywhere.  The f32 kernel takes exponentials with expf
+// and sums exact f32 FMAs.  Element offsets are
 // 64-bit.
 //
 // Rows that see no key.  Row q may see keys [max(0, q - window + 1),
@@ -77,18 +102,28 @@
 // batch), launched by the wrapper only when some row is fully masked) and
 // write it, rounded to the output type, in the epilogue.
 //
-// Times on an H100 80GB HBM3 at 700 W (chip_smoke.py's card table, B1;
-// the CUDA-core bf16 kernel this one replaced in brackets): bf16 at
-// yi-6b widths (S4096 H32 K4 hd128, causal) 0.385 ms [6.491], 357
-// TFLOP/s, against scaled_dot_product_attention's 0.307; grok-1 (S8192
-// H48 K8 hd128, softcap 30) 3.766 ms [36.345]; recurrentgemma-2b (S8192
-// H10 K1 hd256, window 2048) 0.462 ms [8.389]; float32 6.297, 35.672 and
-// 7.405 ms (PERF.md, section 6).
+// Times on an NVIDIA H100 80GB HBM3 at 700.00 W (benchmarks/
+// torch_bench_kernels.py's card table, B1, one call alone between two
+// CUDA events, host launch included; two runs of this source and, in
+// brackets, two of the f32 kernel it replaced, all in one call of the
+// card; PERF.md, section 6): bf16 at yi-6b widths (S4096 H32 K4 hd128,
+// causal) 0.369-0.375 ms, 367-372 TFLOP/s, against
+// scaled_dot_product_attention's 0.292-0.295; grok-1 (S8192 H48 K8
+// hd128, softcap 30) 3.76-3.79 ms; recurrentgemma-2b (S8192 H10 K1
+// hd256, window 2048) 0.472-0.507 ms.  float32: yi-6b 3.603-3.637 ms
+// [6.364-6.386], 37.8-38.2 TFLOP/s, 56-57 % of the CUDA cores' 67,
+// against SDPA's 13.37-13.40; grok-1 21.99-22.05 ms [35.68-35.85], 37.4-
+// 37.5 TFLOP/s; recurrentgemma-2b 4.514-4.612 ms [7.409-7.452] (4.635-
+// 4.639 in the two full runs that followed), 32.6-33.3 TFLOP/s, 48-50 %
+// of its bound, against SDPA's 24.59-24.62.  At hd 256 the f32 kernel
+// misses its 4.49 ms target: BQ 64 gives each
+// thread 4 rows, so S = q k^T reads shared memory every 8 FMAs (about 11
+// at hd 128), with 8 warps an SM to hide it.
 //
 // C interface (ctypes): pointers and the stream are void*, sizes int64;
 // returns cudaGetLastError(), cudaErrorInvalidValue for what it does not
 // take (hd not 64, 128 or 256; a fully masked row without vmean; a
-// pointer the TMA cannot address; a bf16 softcap outside [2^-20, 2^20]),
+// pointer not on 16 bytes; a softcap outside [2^-20, 2^20]),
 // or 10000 + the CUresult of a failed cuTensorMapEncodeTiled (20000 if
 // cuTensorMapEncodeTiled cannot be found).
 
@@ -104,7 +139,6 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
     return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 // the kernels' common test for a row that no key may be seen by
 __host__ __device__ __forceinline__ bool no_key(int64_t qp, int64_t Skv,
@@ -123,198 +157,6 @@ __global__ void mean_v_kernel(const T* __restrict__ v,
     float s = 0.f;
     for (int64_t t = 0; t < Skv; ++t) s += to_f32(p[t * K * hd]);
     vmean[(b * K + kh) * hd + d] = __fdiv_rn(s, (float)Skv);
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;           // query rows per block
-constexpr int BKV = 32;          // keys per tile
-constexpr int THREADS = 256;
-constexpr int RPT = BQ / 16;     // query rows per thread
-constexpr int CPT = BKV / 16;    // score columns per thread
-constexpr int PAD = 4;           // floats of padding per q / k row
-constexpr int PS = BKV + PAD;    // row stride of the probability tile
-
-template <int HD>
-constexpr size_t smem_bytes() {
-    return sizeof(float) *
-           ((size_t)BQ * (HD + PAD) + (size_t)BKV * (HD + PAD) +
-            (size_t)BKV * HD + (size_t)BQ * PS);
-}
-
-// instantiated for float only: bfloat16 runs on the tensor cores (tc)
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 const float* __restrict__ vmean, int64_t S, int64_t Skv,
-                 int64_t H, int64_t G, int causal, int64_t window,
-                 float softcap, float scale) {
-    constexpr int QS = HD + PAD;      // row stride of the q and k tiles
-    constexpr int DPT = HD / 16;      // output columns per thread
-    extern __shared__ float4 smem4[];
-    float* sq = reinterpret_cast<float*>(smem4);
-    float* sk = sq + BQ * QS;
-    float* sv = sk + BKV * QS;
-    float* sp = sv + BKV * HD;
-
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int64_t q0 = (int64_t)blockIdx.x * BQ;
-    const int64_t h = blockIdx.y, b = blockIdx.z;
-    const int64_t K = H / G, kh = h / G;
-    const int64_t q_step = H * HD, kv_step = K * HD;  // between positions
-    const T* qb = q + (b * S * H + h) * HD;
-    const T* kb = k + (b * Skv * K + kh) * HD;
-    const T* vb = v + (b * Skv * K + kh) * HD;
-
-    for (int i = tid; i < BQ * HD; i += THREADS) {
-        const int r = i / HD, d = i % HD;
-        const int64_t qp = q0 + r;
-        sq[r * QS + d] = qp < S ? to_f32(qb[qp * q_step + d]) : 0.f;
-    }
-
-    float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-        m[r] = -INFINITY;
-        l[r] = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[r][j] = 0.f;
-    }
-
-    // keys that some row of this tile may see: [k_lo, k_hi]
-    const int64_t q_last = (q0 + BQ < S ? q0 + BQ : S) - 1;
-    int64_t k_hi = Skv - 1;
-    if (causal && q_last < k_hi) k_hi = q_last;
-    int64_t k_lo = 0;
-    if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
-
-    for (int64_t t0 = (k_lo / BKV) * BKV; t0 <= k_hi; t0 += BKV) {
-        __syncthreads();     // the previous tile's P v is done with sk/sv/sp
-        for (int i = tid; i < BKV * HD; i += THREADS) {
-            const int r = i / HD, d = i % HD;
-            const int64_t kp = t0 + r;
-            const bool in = kp < Skv;
-            sk[r * QS + d] = in ? to_f32(kb[kp * kv_step + d]) : 0.f;
-            sv[r * HD + d] = in ? to_f32(vb[kp * kv_step + d]) : 0.f;
-        }
-        __syncthreads();
-
-        // scores of rows 4 ty + r, key columns tx + 16 c
-        float s[RPT][CPT];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; d += 4) {
-            float4 qv[RPT], kv[CPT];
-#pragma unroll
-            for (int r = 0; r < RPT; ++r)
-                qv[r] = *reinterpret_cast<const float4*>(
-                    &sq[(ty * RPT + r) * QS + d]);
-#pragma unroll
-            for (int c = 0; c < CPT; ++c)
-                kv[c] = *reinterpret_cast<const float4*>(
-                    &sk[(tx + 16 * c) * QS + d]);
-#pragma unroll
-            for (int r = 0; r < RPT; ++r)
-#pragma unroll
-                for (int c = 0; c < CPT; ++c) {
-                    float a = s[r][c];
-                    a = fmaf(qv[r].x, kv[c].x, a);
-                    a = fmaf(qv[r].y, kv[c].y, a);
-                    a = fmaf(qv[r].z, kv[c].z, a);
-                    a = fmaf(qv[r].w, kv[c].w, a);
-                    s[r][c] = a;
-                }
-        }
-
-        // scale, softcap, mask; online softmax per row
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int64_t qp = q0 + ty * RPT + r;
-            float mx = -INFINITY;
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) {
-                const int64_t kp = t0 + tx + 16 * c;
-                float x = s[r][c] * scale;
-                if (softcap > 0.f) x = softcap * tanhf(__fdiv_rn(x, softcap));
-                const bool ok = kp < Skv && (!causal || kp <= qp) &&
-                                (window <= 0 || qp - kp < window);
-                s[r][c] = ok ? x : -INFINITY;
-                mx = fmaxf(mx, s[r][c]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m[r], mx);
-            const float m_use = m_new == -INFINITY ? 0.f : m_new;
-            const float corr = expf(m[r] - m_use);
-            float ps = 0.f;
-#pragma unroll
-            for (int c = 0; c < CPT; ++c) {
-                const float p = expf(s[r][c] - m_use);
-                ps += p;
-                sp[(ty * RPT + r) * PS + tx + 16 * c] = p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                ps += __shfl_xor_sync(0xffffffffu, ps, off);
-            l[r] = l[r] * corr + ps;
-            m[r] = m_new;
-#pragma unroll
-            for (int j = 0; j < DPT; ++j) acc[r][j] *= corr;
-        }
-        __syncthreads();
-
-        // acc += P v over this tile's keys
-#pragma unroll 2
-        for (int kk = 0; kk < BKV; kk += 4) {
-            float4 pv[RPT];
-#pragma unroll
-            for (int r = 0; r < RPT; ++r)
-                pv[r] = *reinterpret_cast<const float4*>(
-                    &sp[(ty * RPT + r) * PS + kk]);
-#pragma unroll
-            for (int j = 0; j < DPT; ++j) {
-                const int d = tx + 16 * j;
-                const float v0 = sv[(kk + 0) * HD + d];
-                const float v1 = sv[(kk + 1) * HD + d];
-                const float v2 = sv[(kk + 2) * HD + d];
-                const float v3 = sv[(kk + 3) * HD + d];
-#pragma unroll
-                for (int r = 0; r < RPT; ++r) {
-                    float a = acc[r][j];
-                    a = fmaf(pv[r].x, v0, a);
-                    a = fmaf(pv[r].y, v1, a);
-                    a = fmaf(pv[r].z, v2, a);
-                    a = fmaf(pv[r].w, v3, a);
-                    acc[r][j] = a;
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-        const int64_t qp = q0 + ty * RPT + r;
-        if (qp >= S) continue;
-        T* orow = o + (b * S * H + h) * HD + qp * q_step;
-        if (no_key(qp, Skv, window)) {
-            const float* mv = vmean + (b * K + kh) * HD;
-#pragma unroll
-            for (int j = 0; j < DPT; ++j)
-                store(&orow[tx + 16 * j], mv[tx + 16 * j]);
-            continue;
-        }
-        const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-            store(&orow[tx + 16 * j], __fdiv_rn(acc[r][j], denom));
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1091,26 +933,380 @@ __global__ void div_cap_check_kernel(const float* __restrict__ divisors,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// launchers and the C interface
+// float32: CUDA cores, register-blocked tiles, cp.async-fed key/value tiles
 // ---------------------------------------------------------------------------
 
+namespace cc {
+
+// 16 x 16 threads (rg, cg); warp w holds rg 4 (w / 2) .. + 3 by cg 8 (w %
+// 2) .. + 7, so a warp's reads of k and v touch 8 distinct 16-byte
+// chunks (one wavefront) and a row's 16 score columns lie in two warps
+constexpr int THREADS = 256;
+constexpr int BKV = 64;           // keys per tile
+constexpr int KT = BKV / 16;      // score columns per thread: keys cg + 16 j
+
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const float* vmean, int64_t B, int64_t S, int64_t Skv,
-               int64_t H, int64_t K, int causal, int64_t window,
-               float softcap, float scale, cudaStream_t stream) {
-    constexpr size_t smem = smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<float, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-    flash_fwd_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
+struct Tiles {
+    static constexpr int BQ = HD == 256 ? 64 : 128;  // query rows per block
+    static constexpr int RT = BQ / 16;    // rows per thread: RT rg .. + RT - 1
+    static constexpr int CT4 = HD / 64;   // output float4s per row and thread:
+                                          // columns 4 cg + 64 i .. + 3
+    static constexpr int KS = HD + 4;     // row stride of the k tile (floats)
+    static constexpr int PS = BQ + 4;     // row stride of the P^T tile
+    // q^T [HD][BQ], k [BKV][KS], v [BKV][HD], P^T [BKV][PS], and each
+    // row's max (then sum) over the keys of either warp [2][BQ]
+    static constexpr size_t SMEM =
+        sizeof(float) * ((size_t)HD * BQ + (size_t)BKV * KS +
+                         (size_t)BKV * HD + (size_t)BKV * PS + 2 * BQ);
+    static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;
+    // head columns of S = q k^T unrolled, in steps of 4 (hd 64 keeps 2 so
+    // that two blocks' 128 registers a thread do not spill)
+    static constexpr int D_UNROLL = HD == 64 ? 2 : 4;
+};
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     tc::smem_u32(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float comp(const float4& x, int e) {
+    return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// what a thread needs to turn a tile's scores into probabilities
+struct Mask {
+    int Skv, causal, window;
+    float softcap, rcap, scale;
+    int r0, c0;    // the thread's first query row and first key column
+};
+
+// scale, softcap and mask the thread's RT x KT scores of the tile at key
+// t0 in place, and give each row's max over the warp's 8 threads of it
+// (half: the row maxima of this warp's 8 score columns, written by the
+// row's first thread).  CAP and EDGE are compile-time, so an interior tile
+// runs without a per-score branch.
+template <int RT, bool CAP, bool EDGE>
+__device__ __forceinline__ void score_tile(float (&s)[RT][KT], const Mask& mk,
+                                           int t0, float* half, bool writer) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const int qp = mk.r0 + r;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+            float x = s[r][j] * mk.scale;
+            if (CAP)
+                x = mk.softcap *
+                    tanhf(tc::div_cap(x, mk.softcap, mk.rcap));
+            if (EDGE) {
+                const int kp = t0 + mk.c0 + 16 * j;
+                const bool ok = kp < mk.Skv && (!mk.causal || kp <= qp) &&
+                                (mk.window <= 0 || qp - kp < mk.window);
+                x = ok ? x : -INFINITY;
+            }
+            s[r][j] = x;
+            mx = fmaxf(mx, x);
+        }
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        if (writer) half[r] = mx;
+    }
+}
+
+// the tile's scores -> probabilities against the running max (both warps'
+// row maxima in rmax[0], rmax[BQ]); updates m and the thread's partial
+// sums l, and rescales the output rows
+template <int RT, int NACC, int BQ>
+__device__ __forceinline__ void softmax_tile(float (&s)[RT][KT],
+                                             float (&m)[RT], float (&l)[RT],
+                                             float (&acc)[RT][NACC],
+                                             const float* rmax) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const float mx = fmaxf(rmax[r], rmax[BQ + r]);
+        const float m_new = fmaxf(m[r], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = expf(m[r] - m_use);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+            const float p = expf(s[r][j] - m_use);
+            ps += p;
+            s[r][j] = p;
+        }
+        l[r] = l[r] * corr + ps;
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < NACC; ++c) acc[r][c] *= corr;
+    }
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(THREADS, Tiles<HD>::MIN_BLOCKS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              const float* __restrict__ vmean, int S, int Skv, int H, int G,
+              int B, int causal, int window, float softcap, float rcap,
+              float scale) {
+    using TL = Tiles<HD>;
+    constexpr int BQ = TL::BQ, RT = TL::RT, CT4 = TL::CT4, KS = TL::KS,
+                  PS = TL::PS, NACC = 4 * CT4;
+    extern __shared__ float4 smem4[];
+    float* sqT = reinterpret_cast<float*>(smem4);   // [HD][BQ]
+    float* sk = sqT + HD * BQ;                      // [BKV][KS]
+    float* sv = sk + BKV * KS;                      // [BKV][HD]
+    float* spT = sv + BKV * HD;                     // [BKV][PS]
+    float* srow = spT + BKV * PS;                    // [2][BQ]
+
+    // heaviest q tile first: the block index runs the q tiles in reverse
+    const int nq = (S + BQ - 1) / BQ;
+    const int64_t hb = (int64_t)H * B;
+    const int qt = nq - 1 - (int)(blockIdx.x / hb);
+    const int rem = (int)(blockIdx.x % hb);
+    const int h = rem % H, b = rem / H, kh = h / G, K = H / G;
+    const int q0 = qt * BQ;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int rg = 4 * (w >> 1) + (lane >> 3), half = w & 1;
+    const int cg = 8 * half + (lane & 7);
+    const bool writer = (lane & 7) == 0;   // a row's first thread in a warp
+    const int64_t q_step = (int64_t)H * HD, kv_step = (int64_t)K * HD;
+    const float* qb = q + ((int64_t)b * S * H + h) * HD;
+    const float* kb = k + ((int64_t)b * Skv * K + kh) * HD;
+    const float* vb = v + ((int64_t)b * Skv * K + kh) * HD;
+
+    // keys that some row of this q tile may see: [k_lo, k_hi]
+    const int q_last = min(q0 + BQ, S) - 1;
+    int k_hi = Skv - 1;
+    if (causal && q_last < k_hi) k_hi = q_last;
+    int k_lo = 0;
+    if (window > 0 && q0 - window + 1 > 0) k_lo = q0 - window + 1;
+    const int t_first = (k_lo / BKV) * BKV;
+    const int n_tiles = k_lo > k_hi ? 0 : (k_hi - t_first) / BKV + 1;
+
+    // one k or v tile (rows t0 .. t0 + BKV - 1, zeros past Skv) into dst
+    auto load_tile = [&](float* dst, int stride, const float* src, int t0) {
+        constexpr int C4 = HD / 4;
+#pragma unroll 4
+        for (int i = tid; i < BKV * C4; i += THREADS) {
+            const int r = i / C4, c = (i - r * C4) * 4;
+            const int kp = t0 + r;
+            const bool in = kp < Skv;
+            cp_async16(dst + r * stride + c,
+                       in ? src + (int64_t)kp * kv_step + c : src, in);
+        }
+    };
+    if (n_tiles > 0) {
+        load_tile(sk, KS, kb, t_first);
+        cp_async_commit();
+        load_tile(sv, HD, vb, t_first);
+        cp_async_commit();
+    }
+    // the q tile, transposed (neighbouring threads on neighbouring rows:
+    // conflict-free stores), while k and v arrive
+    for (int i = tid; i < BQ * (HD / 4); i += THREADS) {
+        const int r = i % BQ, d = (i / BQ) * 4;
+        const int qp = q0 + r;
+        const float4 x = qp < S ? *reinterpret_cast<const float4*>(
+                                      qb + (int64_t)qp * q_step + d)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        sqT[(d + 0) * BQ + r] = x.x;
+        sqT[(d + 1) * BQ + r] = x.y;
+        sqT[(d + 2) * BQ + r] = x.z;
+        sqT[(d + 3) * BQ + r] = x.w;
+    }
+
+    float m[RT], l[RT], acc[RT][NACC];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        m[r] = -INFINITY;
+        l[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < NACC; ++c) acc[r][c] = 0.f;
+    }
+    const Mask mk{Skv, causal, window, softcap, rcap, scale, q0 + rg * RT, cg};
+
+    for (int it = 0; it < n_tiles; ++it) {
+        const int t0 = t_first + it * BKV;
+        if (it == 0)
+            cp_async_wait1();   // k of the first tile (its v may be in flight)
+        else
+            cp_async_wait0();   // k of this tile
+        __syncthreads();        // k in; P v of the last tile done everywhere
+        if (it > 0) {
+            load_tile(sv, HD, vb, t0);
+            cp_async_commit();
+        }
+
+        // S = q k^T: rows RT rg + r, keys cg + 16 j
+        float s[RT][KT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int j = 0; j < KT; ++j) s[r][j] = 0.f;
+#pragma unroll (TL::D_UNROLL)
+        for (int d = 0; d < HD; d += 4) {
+            float4 kv[KT];
+#pragma unroll
+            for (int j = 0; j < KT; ++j)
+                kv[j] = *reinterpret_cast<const float4*>(
+                    &sk[(cg + 16 * j) * KS + d]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float qv[RT];
+#pragma unroll
+                for (int r4 = 0; r4 < RT / 4; ++r4) {
+                    const float4 x = *reinterpret_cast<const float4*>(
+                        &sqT[(d + e) * BQ + rg * RT + 4 * r4]);
+                    qv[4 * r4] = x.x;
+                    qv[4 * r4 + 1] = x.y;
+                    qv[4 * r4 + 2] = x.z;
+                    qv[4 * r4 + 3] = x.w;
+                }
+#pragma unroll
+                for (int r = 0; r < RT; ++r)
+#pragma unroll
+                    for (int j = 0; j < KT; ++j)
+                        s[r][j] = fmaf(qv[r], comp(kv[j], e), s[r][j]);
+            }
+        }
+        // the per-score mask only where some row may lose a key of the tile
+        const bool edge = t0 + BKV > Skv || (causal && t0 + BKV - 1 > q0) ||
+                          (window > 0 && q0 + BQ - 1 - t0 >= window);
+        float* rhalf = srow + half * BQ + rg * RT;
+        if (edge)
+            score_tile<RT, CAP, true>(s, mk, t0, rhalf, writer);
+        else
+            score_tile<RT, CAP, false>(s, mk, t0, rhalf, writer);
+        __syncthreads();        // k tile done with; both warps' row maxima in
+        if (it + 1 < n_tiles) load_tile(sk, KS, kb, t0 + BKV);
+        cp_async_commit();
+        softmax_tile<RT, NACC, BQ>(s, m, l, acc, srow + rg * RT);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int r4 = 0; r4 < RT / 4; ++r4)
+                *reinterpret_cast<float4*>(
+                    &spT[(cg + 16 * j) * PS + rg * RT + 4 * r4]) =
+                    make_float4(s[4 * r4][j], s[4 * r4 + 1][j],
+                                s[4 * r4 + 2][j], s[4 * r4 + 3][j]);
+        cp_async_wait1();       // v of this tile (the next k may be in flight)
+        __syncthreads();
+
+        // acc += P v: rows RT rg + r, columns 4 cg + 64 i + e
+#pragma unroll 8
+        for (int j = 0; j < BKV; ++j) {
+            float p[RT];
+#pragma unroll
+            for (int r4 = 0; r4 < RT / 4; ++r4) {
+                const float4 x = *reinterpret_cast<const float4*>(
+                    &spT[j * PS + rg * RT + 4 * r4]);
+                p[4 * r4] = x.x;
+                p[4 * r4 + 1] = x.y;
+                p[4 * r4 + 2] = x.z;
+                p[4 * r4 + 3] = x.w;
+            }
+            float4 vv[CT4];
+#pragma unroll
+            for (int i = 0; i < CT4; ++i)
+                vv[i] = *reinterpret_cast<const float4*>(
+                    &sv[j * HD + 4 * cg + 64 * i]);
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+#pragma unroll
+                for (int i = 0; i < CT4; ++i) {
+                    acc[r][4 * i] = fmaf(p[r], vv[i].x, acc[r][4 * i]);
+                    acc[r][4 * i + 1] = fmaf(p[r], vv[i].y, acc[r][4 * i + 1]);
+                    acc[r][4 * i + 2] = fmaf(p[r], vv[i].z, acc[r][4 * i + 2]);
+                    acc[r][4 * i + 3] = fmaf(p[r], vv[i].w, acc[r][4 * i + 3]);
+                }
+        }
+    }
+
+    // a row's sum: over the 8 threads of each warp, then the two warps
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+        if (writer) srow[half * BQ + rg * RT + r] = l[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+        l[r] = srow[rg * RT + r] + srow[BQ + rg * RT + r];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const int qp = mk.r0 + r;
+        if (qp >= S) continue;
+        float* orow = o + ((int64_t)b * S + qp) * q_step + (int64_t)h * HD;
+        if (no_key(qp, Skv, window)) {
+            const float* mv = vmean + ((int64_t)b * K + kh) * HD;
+#pragma unroll
+            for (int i = 0; i < CT4; ++i)
+                *reinterpret_cast<float4*>(orow + 4 * cg + 64 * i) =
+                    *reinterpret_cast<const float4*>(mv + 4 * cg + 64 * i);
+            continue;
+        }
+        const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int i = 0; i < CT4; ++i)
+            *reinterpret_cast<float4*>(orow + 4 * cg + 64 * i) =
+                make_float4(__fdiv_rn(acc[r][4 * i], den),
+                            __fdiv_rn(acc[r][4 * i + 1], den),
+                            __fdiv_rn(acc[r][4 * i + 2], den),
+                            __fdiv_rn(acc[r][4 * i + 3], den));
+    }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const float* vmean, int64_t B, int64_t S, int64_t Skv, int64_t H,
+           int64_t K, int causal, int64_t window, float softcap, float scale,
+           cudaStream_t stream) {
+    using TL = Tiles<HD>;
+    if (S >= (1ll << 31) || Skv >= (1ll << 31) || window >= (1ll << 31))
+        return (int)cudaErrorInvalidValue;
+    if (softcap > 0.f && (softcap < 0x1p-20f || softcap > 0x1p20f))
+        return (int)cudaErrorInvalidValue;    // div_cap's checked range
+    const void* ptrs[] = {q, k, v, o, vmean};
+    for (const void* p : ptrs)
+        if (reinterpret_cast<uintptr_t>(p) % 16)   // cp.async, float4
+            return (int)cudaErrorInvalidValue;
+    auto kernel = softcap > 0.f ? flash_fwd_f32<HD, true>
+                                : flash_fwd_f32<HD, false>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TL::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t blocks = (S + TL::BQ - 1) / TL::BQ * H * B;
+    if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, THREADS, TL::SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), vmean, S, Skv,
-        H, H / K, causal, window, softcap, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), vmean, (int)S,
+        (int)Skv, (int)H, (int)(H / K), (int)B, causal,
+        (int)(window > 0 ? window : 0), softcap,
+        softcap > 0.f ? (float)(1.0 / (double)softcap) : 0.f, scale);
     return (int)cudaGetLastError();
 }
+
+}  // namespace cc
+
+// ---------------------------------------------------------------------------
+// launchers and the C interface
+// ---------------------------------------------------------------------------
 
 template <int HD>
 int launch_hd(int dtype, const void* q, const void* k, const void* v,
@@ -1118,7 +1314,7 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v,
               int64_t H, int64_t K, int causal, int64_t window, float softcap,
               float scale, cudaStream_t st) {
     if (dtype == 0)
-        return launch_f32<HD>(q, k, v, o, vmean, B, S, Skv, H, K, causal,
+        return cc::launch<HD>(q, k, v, o, vmean, B, S, Skv, H, K, causal,
                               window, softcap, scale, st);
     if (dtype == 1)
         return tc::launch<HD>(q, k, v, o, vmean, B, S, Skv, H, K, causal,
@@ -1159,7 +1355,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     }
 }
 
-// The bf16 kernel's softcap quotient (div_cap) against IEEE division over
+// The kernels' softcap quotient (div_cap) against IEEE division over
 // every float |x| in [2^-100, 2^100], for n divisors (float32, device):
 // mismatches (n uint64, device, zeroed by the caller) counts the
 // differing quotients per divisor.  A check run by chip_smoke.py.

@@ -8,8 +8,11 @@ loaded when the module is imported.  The launcher takes the inputs as
 ``DTYPES``, hd in ``HEAD_DIMS``) and refuses only what is not a
 contiguous CUDA tensor; it runs the kernel on PyTorch's current stream
 into an output it allocates, and raises if the launch was refused.  The
-kernel chooses its own tiles and takes any sequence length; float32 runs
-on the CUDA cores, bfloat16 on the tensor cores (wgmma on TMA-fed
+kernels read 16-byte chunks (TMA, cp.async), so an input whose storage
+does not start on 16 bytes is copied first.  The kernel chooses its own
+tiles and takes any sequence length; float32 runs on the CUDA cores
+(register-blocked tiles of 128 query rows, 64 at hd 256, against 64-key
+tiles fed by cp.async), bfloat16 on the tensor cores (wgmma on TMA-fed
 tiles).
 """
 from __future__ import annotations
@@ -37,6 +40,9 @@ LIBRARY = NvccLibrary(
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the kernel is instantiated for (every config and test)
 HEAD_DIMS = (64, 128, 256)
+#: softcaps (as float32) whose quotient ``div_cap`` is checked to equal
+#: IEEE division; the launcher refuses a cap outside this range
+SOFTCAP_RANGE = (2.0 ** -20, 2.0 ** 20)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,6 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     taken first by the kernel ``flash_attention_mean_v``: such rows return
     it, as the plain version's uniform softmax does."""
     require_cuda(q=q, k=k, v=v)
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -71,9 +78,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def check_div_cap(divisors: torch.Tensor) -> torch.Tensor:
     """For each float32 divisor (a CUDA tensor), how many float x with |x|
-    in [2^-100, 2^100] have a bf16-kernel softcap quotient (``div_cap``)
-    that differs from the IEEE quotient (``__fdiv_rn``): int64 counts, 0
-    where the kernel divides exactly."""
+    in [2^-100, 2^100] have a softcap quotient (``div_cap``, which both
+    kernels take) that differs from the IEEE quotient (``__fdiv_rn``):
+    int64 counts, 0 where the kernels divide exactly."""
     require_cuda(divisors=divisors)
     out = torch.zeros(divisors.shape, dtype=torch.int64,
                       device=divisors.device)

@@ -6,7 +6,12 @@ loaded when the module is imported.  The launcher takes the inputs as
 ``ops.rglru_scan`` checked them (a/b of one shape and one dtype of
 ``DTYPES``, h0 (B, D) float32) and refuses only what is not a contiguous
 CUDA tensor; it runs the kernel on PyTorch's current stream into an
-output it allocates, and raises if the launch was refused.
+output it allocates, and raises if the launch was refused.  The kernel
+picks its own geometry: blocks of a few dozen channels of one batch row,
+about one block an SM, each streaming its (time tile x channels) panels
+of a and b through a shared-memory ring by cp.async (element loads where
+a row is not whole 16-byte chunks) and running one serial chain a
+channel.
 """
 from __future__ import annotations
 

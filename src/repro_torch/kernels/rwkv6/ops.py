@@ -1,10 +1,12 @@
 """Dispatching wrapper of the WKV-6 recurrence: ``wkv6(r, k, v, w, u, s0)``.
 
-A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the CUDA kernel (``kernel.py``), with no fallback: a kernel that
+A CPU tensor takes the plain PyTorch version (``ref.py``) right after the
+shape checks, at any head size, as the JAX op takes it.  Any other tensor
+is held to what the CUDA kernel is built for, hs in ``HEAD_SIZES`` (so a
+``meta`` tensor shows the rule without a card), and then a CUDA tensor
+launches the kernel (``kernel.py``), with no fallback: a kernel that
 cannot build or launch raises; any other device raises.  Inputs are cast
-to float32, as the reference casts them.  A head size the kernel is not
-instantiated for raises on every device.  Each launch of the kernel adds
+to float32, as the reference casts them.  Each launch of the kernel adds
 one to ``wkv6.launches`` (``launch_counts``/``reset_launch_counts``).
 """
 from __future__ import annotations
@@ -23,13 +25,13 @@ def wkv6(r, k, v, w, u, s0):
     if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, w)):
         raise ValueError("r, k, v, w must share one (B, S, H, hs) shape")
     B, S, H, hs = r.shape
-    if hs not in HEAD_SIZES:
-        raise ValueError(f"head size {hs} not in {HEAD_SIZES}")
     if tuple(u.shape) != (H, hs) or tuple(s0.shape) != (B, H, hs, hs):
         raise ValueError(f"u {tuple(u.shape)} / s0 {tuple(s0.shape)} do not "
                          f"match r {tuple(r.shape)}")
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, s0)
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"head size {hs} not in {HEAD_SIZES}")
     if r.device.type != "cuda":
         raise ValueError(f"no wkv6 implementation for device {r.device}")
     out = _k.wkv6(*(x.to(torch.float32).contiguous()

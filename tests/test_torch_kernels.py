@@ -39,7 +39,11 @@ from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": dict(atol=2e-4, rtol=2e-4),
-       "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+       "bfloat16": dict(atol=5e-2, rtol=5e-2),
+       # the reference sweeps no float16; both sides compute in float32
+       # and round to float16 once, so they differ by at most one float16
+       # ulp, 2^-10 |ref| (<= 1e-3 + 1e-3 |ref|)
+       "float16": dict(atol=1e-3, rtol=1e-3)}
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -248,25 +252,84 @@ def test_ops_on_cpu_take_the_plain_version():
 
 
 @pytest.mark.parametrize("case", ["attention_hd96", "wkv6_hs48",
-                                  "attention_float16", "rglru_mixed"])
+                                  "attention_float16", "rglru_mixed",
+                                  "attention_softcap_2^21"])
 def test_unsupported_widths_and_dtypes_raise(case):
-    if case == "attention_hd96":
-        q = torch.zeros(1, 8, 2, 96)
+    """Off the CPU the ops hold their inputs to what the CUDA kernels are
+    built for, before they look at the device: on ``meta`` tensors (no
+    card needed) a width, dtype or softcap the kernels do not take
+    raises.  On the CPU the same inputs compute (``test_cpu_ops_match_jax_
+    at_any_width_and_dtype``)."""
+    meta = dict(device="meta")
+    if case == "attention_softcap_2^21":
+        q = torch.zeros(1, 8, 2, 64, **meta)
+        with pytest.raises(ValueError, match="softcap"):
+            fa.flash_attention(q, q, q, softcap=2.0 ** 21)
+        # the range's ends pass the rule and reach the device check
+        for cap in fa_kernel.SOFTCAP_RANGE:
+            with pytest.raises(ValueError, match="no flash attention"):
+                fa.flash_attention(q, q, q, softcap=cap)
+    elif case == "attention_hd96":
+        q = torch.zeros(1, 8, 2, 96, **meta)
         with pytest.raises(ValueError, match="head dim 96"):
             fa.flash_attention(q, q, q)
     elif case == "wkv6_hs48":
-        x = torch.zeros(1, 4, 2, 48)
+        x = torch.zeros(1, 4, 2, 48, **meta)
         with pytest.raises(ValueError, match="head size 48"):
-            rwkv6.wkv6(x, x, x, x, torch.zeros(2, 48),
-                       torch.zeros(1, 2, 48, 48))
+            rwkv6.wkv6(x, x, x, x, torch.zeros(2, 48, **meta),
+                       torch.zeros(1, 2, 48, 48, **meta))
     elif case == "attention_float16":
-        q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
+        q = torch.zeros(1, 8, 2, 64, dtype=torch.float16, **meta)
         with pytest.raises(TypeError):
             fa.flash_attention(q, q, q)
     else:
-        a = torch.zeros(1, 4, 8)
+        a = torch.zeros(1, 4, 8, **meta)
         with pytest.raises(TypeError):
-            rglru.rglru_scan(a, a.to(torch.bfloat16), torch.zeros(1, 8))
+            rglru.rglru_scan(a, a.to(torch.bfloat16),
+                             torch.zeros(1, 8, **meta))
+
+
+@pytest.mark.parametrize("case", [
+    "attention_hd16_causal", "attention_hd16_window_softcap",
+    "attention_hd96_causal", "attention_hd96_window_softcap",
+    "attention_float16", "rglru_float16", "rglru_f32_a_bf16_b",
+    "wkv6_hs8", "wkv6_hs48"])
+def test_cpu_ops_match_jax_at_any_width_and_dtype(case):
+    """On the CPU the ops take every head width and float dtype the JAX
+    ops take (hd 16 is every ``SMOKE`` config's), through their plain
+    versions, and agree with the JAX Pallas kernels in interpret mode on
+    the same seeded inputs, at the reference's tolerances (float16: one
+    float16 ulp, ``TOL``)."""
+    rng = np.random.default_rng(8)
+    if case.startswith("attention"):
+        hd = 64 if case == "attention_float16" else int(
+            case.split("_")[1][2:])
+        dtype = "float16" if case == "attention_float16" else "float32"
+        B, S, H, K = (1, 64, 2, 2) if dtype == "float16" else (1, 128, 4, 2)
+        opts = (dict(causal=True, window=32, softcap=30.0)
+                if case.endswith("window_softcap") else dict(causal=True))
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _pair(_normal(rng, B, S, n, hd), dtype) for n in (H, K, K))
+        got = fa.flash_attention(tq, tk, tv, **opts)
+        assert got.dtype == getattr(torch, dtype)
+        _close(got, jax_fa(jq, jk, jv, block_q=64, block_kv=64,
+                           interpret=True, **opts), dtype)
+    elif case.startswith("rglru"):
+        a, b, h0 = _rglru_inputs(rng, 1, 64, 128)
+        (ja, ta), (jb, tb) = ((_pair(a, "float16"), _pair(b, "float16"))
+                              if case == "rglru_float16" else
+                              (_pair(a, "float32"), _pair(b, "bfloat16")))
+        got = rglru.rglru_scan(ta, tb, torch.from_numpy(h0))
+        assert got.dtype == torch.float32
+        _close(got, jax_rglru(ja, jb, jnp.asarray(h0), chunk_t=32,
+                              block_d=128, interpret=True))
+    else:
+        hs = int(case.split("hs")[1])
+        xs = _wkv6_inputs(rng, 1, 64, 2, hs, s0_scale=0.1)
+        y, st = rwkv6.wkv6(*(torch.from_numpy(x) for x in xs))
+        yr, sr = jax_wkv6(*xs, chunk_t=32, interpret=True)
+        _close(y, yr)
+        _close(st, sr)
 
 
 def test_kernel_launchers_reject_cpu_tensors_without_building():
