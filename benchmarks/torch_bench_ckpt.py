@@ -21,11 +21,11 @@ It measures, on the port's checkpoint plane:
 the JAX package's ``bench_ckpt.py`` writes, so either package's
 ``SimCostModel.from_calibration`` loads it), ``validate_calibration``
 checks it and ``emit_calibration`` writes it; ``main`` writes
-``BENCH_ckpt_torch.json``.  ``smoke(tmpdir)`` runs the whole flow on tiny
-states and checks the artifact loads.  The states live on the CUDA device
-unless ``--device`` names another (the CPU runs the kernels' plain
-versions).  The JAX package's ``bench_calibrated_optimize`` is not
-twinned here: it needs the batched plan verifier.
+``BENCH_ckpt_torch.json`` and ends with ``bench_calibrated_optimize``,
+the plan optimizer priced by the measured cost model.  ``smoke(tmpdir)``
+runs the whole flow on tiny states and checks the artifact loads.  The
+states live on the CUDA device unless ``--device`` names another (the CPU
+runs the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -436,6 +436,35 @@ def emit_calibration(path: str, meas: dict, plan_stats: dict,
     return cal
 
 
+def bench_calibrated_optimize(cal: dict):
+    """The optimizer scenario of the JAX package's ``bench_ckpt.py`` with
+    the MEASURED cost model — the end of the calibration loop.  With the
+    host encode CPU priced, delta plans only win when their encode
+    actually beats the write they save."""
+    from repro_torch.core import QoSModel, optimize_plan
+
+    cost = SimCostModel.from_calibration(cal, capacity_eps=4600.0,
+                                         ckpt_sync_penalty=0.6)
+    rng = np.random.default_rng(0)
+    ci = rng.uniform(10, 120, 200)
+    tr = rng.uniform(1000, 4000, 200)
+    m_l = QoSModel().fit(ci, tr, cost.base_latency_s + 40.0 / ci + tr * 1e-5)
+    m_r = QoSModel().fit(ci, tr, 80.0 + 1.2 * ci + 0.01 * tr)
+    res = optimize_plan(m_l, m_r, tr_avg=2500.0, l_const=1.0, r_const=240.0,
+                        p=1.0, ci_min=10, ci_max=120, cost=cost)
+    print("\n=== Plan optimization (calibrated cost model) ===")
+    print(f"measured: full_write={cost.ckpt_duration_s*1e3:.1f}ms "
+          f"delta_fraction={cost.delta_fraction:.4f} "
+          f"encode={cost.delta_encode_s_per_byte * cost.state_bytes*1e3:.1f}"
+          f"ms/trigger")
+    if res.plan is not None:
+        print(f"chosen: {res.plan.name} @ CI={res.ci:.1f}s "
+              f"(overhead {res.overhead:.4f})")
+    else:
+        print("no feasible plan under the measured cost model")
+    return res
+
+
 def main(out: str = "BENCH_ckpt_torch.json", device: Any = None,
          tmpdir: Optional[str] = None) -> dict:
     """The full bench at scale 4; checkpoints go under ``tmpdir`` (default:
@@ -456,6 +485,7 @@ def main(out: str = "BENCH_ckpt_torch.json", device: Any = None,
         assert e["encode_s"] < cal["full_write_s"], \
             f"fused {codec} encode {e['encode_s']:.4f}s not under the " \
             f"host full write {cal['full_write_s']:.4f}s"
+    bench_calibrated_optimize(cal)
     return cal
 
 

@@ -37,6 +37,21 @@ Phases, in order (any failure exits non-zero, before the result line):
                at its ragged edges, #9 within 2e-4, including the
                two-call state carry.  Its tensors are freed before the
                calibration;
+  campaign     the chaos-campaign path on the torch lane engine
+               (``sim.DeviceCampaign``, float64 tensors on the card):
+               ``benchmarks/torch_bench_campaign.py`` at its full size —
+               the parity matrix (plan x crash kind x degradation x CI,
+               60 lanes x 900 ticks) bit for bit against the NumPy lane
+               engine (no divergent lane), lane-ticks/s of both engines at
+               1e3, 1e4 and 1e5 lanes x 2000 ticks, a profiler trace of
+               the torch engine's ticks (device busy share, launches a
+               tick) at 1e3 and 1e5 lanes, and the exhaustive plan
+               sweep on the card against the top-3 NumPy replay (its
+               measured objective no worse); then the runtime drill (a
+               4-lane controller-in-the-loop campaign and a micro trainer's
+               plan switch), the proactive drill, and the recovery drill's
+               ``bench_sim/3`` artifact, validated in a temporary
+               directory.  Printed as one ``{"campaign": {...}}`` line;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -53,8 +68,10 @@ Phases, in order (any failure exits non-zero, before the result line):
                from the bench at its own scale, loaded by the port's
                ``SimCostModel.from_calibration``;
   khaos 1-2    ``KhaosRuntime`` records the trainer stream's steady state
-               and profiles a (failure point x CI) grid on simulated
-               deployments priced by that cost model, fitting M_L and M_R;
+               and profiles the JAX package's default grid (5 failure
+               points x 6 CIs) as lanes of one campaign on the card's lane
+               engine, priced by that cost model, fitting M_L and M_R; the
+               job's priced recovery must be > 0 (ROADMAP fault 7);
   khaos 3      the runtime attaches to the live trainer; the backlog that
                the lossless delta's stall and the failure left (read on
                each side of both) violates the latency constraint and the
@@ -95,6 +112,11 @@ SRC = ROOT / "src"
 CKPT_DIR = ROOT / ".chip_smoke_ckpt"
 BENCH = ROOT / "benchmarks" / "torch_bench_ckpt.py"
 KBENCH = ROOT / "benchmarks" / "torch_bench_kernels.py"
+#: the chaos-campaign drills: the E12 engine bench, the runtime, proactive
+#: and recovery drills
+CAMPAIGN_BENCHES = tuple(ROOT / "benchmarks" / f"torch_bench_{n}.py"
+                         for n in ("campaign", "runtime", "proactive",
+                                   "recovery"))
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -115,6 +137,9 @@ DETECT_S, RESTART_S = 2.0, 1.0     # trainer failure detection / restart
 LOSSLESS_STEPS = 20                # steps of the lossless half
 KHAOS_PERIOD_S = 5.0               # controller optimization period
 CI_GRID = (1.5, 3.0, 6.0)          # profiled CIs, x the calibrated full write
+#: the profiled (failure points, CIs): the JAX package's KhaosConfig
+#: defaults (num_failure_points 5, num_configs 6), over CI_GRID's window
+KHAOS_GRID = (5, 6)
 
 _CKPT = ("src/repro/kernels/ckpt_delta/kernel.py",
          "src/repro_torch/kernels/ckpt_delta/csrc/ckpt_delta.cu")
@@ -643,6 +668,49 @@ def seqmix_phase(dev) -> tuple[dict, list]:
     return heads, table
 
 
+def campaign_phase(dev) -> dict:
+    """The chaos-campaign path on the card's torch lane engine
+    (``benchmarks/torch_bench_campaign.py``, the E12 twin, at its full
+    size): the parity matrix at horizon 900 against the NumPy engine, which
+    must have no divergent lane; lane-ticks/s of both engines at
+    1e3/1e4/1e5 lanes x 2000 ticks; a profiler trace of the torch engine's
+    ticks at 1e3 and 1e5 lanes; the exhaustive plan sweep on the card
+    against the top-3 NumPy replay.  Then the runtime and proactive drills on the
+    card, and the recovery drill's ``bench_sim/3`` artifact (holding the
+    whole section) written into a temporary directory and validated."""
+    import tempfile
+
+    import torch
+    cbench, rbench, pbench, recbench = (_module(p) for p in CAMPAIGN_BENCHES)
+    out: dict = {}
+    t0 = time.monotonic()
+    parity = cbench.parity_check(horizon=900, device=dev)
+    check(parity["divergent_lanes"] == 0,
+          f"the torch lane engine diverged from the NumPy engine on "
+          f"{parity['divergent_lanes']} of {parity['lanes']} lanes")
+    check(not parity["fma_contraction"] and parity["phase_matches_numpy"],
+          f"device arithmetic differs from NumPy's: {parity}")
+    check(parity["recoveries"] > 0, "the parity matrix recovered nothing")
+    throughput = cbench.bench_throughput(device=dev)
+    out["trace"] = [cbench.trace_ticks(n, device=dev) for n in (1000, 100_000)]
+    sweep = cbench.bench_sweep(device=dev)
+    section = {"throughput": throughput, "parity": parity, "sweep": sweep}
+    out["engine_s"] = time.monotonic() - t0
+    t1 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["runtime"] = rbench.smoke(os.path.join(tmp, "runtime"),
+                                      device=dev)
+        out["proactive"] = pbench.smoke(device=dev)
+        art = recbench.smoke(os.path.join(tmp, "sim"),
+                             proactive=out["proactive"], device_sec=section,
+                             device=dev)
+    out["drills_s"] = time.monotonic() - t1
+    out.update(section=section, e4=art["e4"], grid=art["grid"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def calibration_phase(model_cfg, dev) -> dict:
     """The device section of the checkpoint calibration on a fresh train
     state of its own (freed after): fused encodes vs the per-leaf
@@ -917,8 +985,66 @@ def calibration_artifact(run: TrainerRun, device_section: dict,
     return cal, sources
 
 
-def khaos_phases(run: TrainerRun, cal: dict) -> dict:
-    """Phases 1 and 2 on the host, then Phase 3 over the live trainer.
+def khaos_cost(cal: dict, step_s: float, batch: int):
+    """The cost model of the job from the calibration artifact: capacity
+    ``batch / step_s`` events/s, base latency one step."""
+    from repro_torch.sim import SimCostModel
+    return SimCostModel.from_calibration(
+        cal, capacity_eps=batch / step_s, base_latency_s=step_s,
+        detect_s=DETECT_S, restart_s=RESTART_S)
+
+
+def khaos_profile(cost, recording, plans: list, l_const: float,
+                  grid: tuple = KHAOS_GRID, engine: str = "device",
+                  device=None):
+    """Phases 1 and 2 of the job: a ``KhaosRuntime`` over ``plans`` records
+    the steady state of ``recording`` and profiles ``grid`` = (failure
+    points, CIs) in a CI window of 1.5x-6x the calibrated full write —
+    ``engine`` "device"/"numpy" as lanes of one campaign
+    (``BatchedDeployment``), "sequential" one ``SimDeployment`` per CI.
+    At 3 CIs the grid is ``CI_GRID``; otherwise the runtime's own grid
+    (evenly spaced over the window).  Returns (runtime, CIs,
+    deployment)."""
+    from repro_torch.config import KhaosConfig
+    from repro_torch.core import KhaosRuntime
+    from repro_torch.sim import BatchedDeployment, SimDeployment
+
+    m, z = grid
+    fw = cost.ckpt_duration_s
+    rt = KhaosRuntime(KhaosConfig(latency_constraint=l_const,
+                                  optimization_period=KHAOS_PERIOD_S,
+                                  ci_min=CI_GRID[0] * fw,
+                                  ci_max=CI_GRID[-1] * fw,
+                                  num_failure_points=m, num_configs=z),
+                      cost=cost, plan_variants=plans)
+    rt.record_steady_state(recording)
+    cis = [f * fw for f in CI_GRID] if z == len(CI_GRID) \
+        else list(rt.default_ci_grid())
+    if engine == "sequential":
+        def deployment(ci):
+            return SimDeployment(ci, recording, cost)
+    else:
+        deployment = BatchedDeployment(cost, recording, engine=engine,
+                                       device=device)
+    rt.run_profiling(deployment, ci_values=cis)
+    return rt, cis, deployment
+
+
+def priced_recovery(rt, cost, plan, cis: list, tr_now: float) -> float:
+    """The job's recovery at ``cis[0]`` as the optimizer re-prices it from
+    the fitted models (on the optimizer's CI grid)."""
+    import numpy as np
+    from repro_torch.config import CheckpointPlan
+    from repro_torch.core.ci_optimizer import _variant_predictions
+    _, recs, _ = _variant_predictions(rt.m_l, rt.m_r, cost, [plan],
+                                      np.linspace(cis[0], cis[-1], 128),
+                                      tr_now, CheckpointPlan())
+    return float(recs[0][0])
+
+
+def khaos_phases(run: TrainerRun, cal: dict, dev) -> dict:
+    """Phases 1 and 2 (the grid as lanes of one campaign on the card's
+    lane engine), then Phase 3 over the live trainer.
 
     The constraints, as a user would set them from the calibrated costs:
     the job may lag by the backlog that ONE lossless device delta, as the
@@ -926,58 +1052,47 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
     / capacity); recovery may take up to twice what the calibrated models
     predict for the job at its current CI.  The job runs at 1.5x the
     calibrated full write: the profiled grid spans 1.5x-6x of it."""
-    import numpy as np
-    from repro_torch.config import CheckpointPlan, KhaosConfig, replace
-    from repro_torch.core import KhaosRuntime, optimize_plan
-    from repro_torch.core.ci_optimizer import _variant_predictions
+    from repro_torch.config import replace
+    from repro_torch.core import optimize_plan
     from repro_torch.data.stream import record_workload
-    from repro_torch.sim import SimCostModel, SimDeployment
 
     tr, plan = run.tr, run.tr.ckpt.plan
     int8 = replace(plan, delta_codec="int8")
     step_s = run.step_s()
     capacity = run.tcfg.batch / step_s
-    cost = SimCostModel.from_calibration(
-        cal, capacity_eps=capacity,
-        base_latency_s=step_s,
-        detect_s=run.tcfg.detect_s, restart_s=run.tcfg.restart_s)
-    cis = [f * cost.ckpt_duration_s for f in CI_GRID]
+    cost = khaos_cost(cal, step_s, run.tcfg.batch)
     recording = record_workload(run.schedule, duration=STREAM_PERIOD_S,
                                 seed=0)
     priced_lossless = cost.write_duration("delta", "local", "lossless",
                                           "device")
     l_const = float(recording.counts.mean()) * priced_lossless / capacity
-    rt = KhaosRuntime(KhaosConfig(latency_constraint=l_const,
-                                  optimization_period=KHAOS_PERIOD_S,
-                                  ci_min=cis[0], ci_max=cis[-1],
-                                  num_failure_points=2,
-                                  num_configs=len(cis)),
-                      cost=cost, plan_variants=[plan, int8])
     t0 = time.monotonic()
-    rt.record_steady_state(recording)
-    rt.run_profiling(lambda ci: SimDeployment(ci, recording, cost),
-                     ci_values=cis)
+    rt, cis, dep = khaos_profile(cost, recording, [plan, int8], l_const,
+                                 engine="device", device=dev)
+    profile_s = time.monotonic() - t0
     info = rt.phase_log[-1].info
-    log(f"khaos phases 1-2: {rt.phase_sequence()}, {info['cells']} cells, "
-        f"M_L error {info['m_l_pct_error']:.4f}, M_R error "
-        f"{info['m_r_pct_error']:.4f} ({time.monotonic() - t0:.1f} s); "
-        f"latencies {rt.profile.latencies.tolist()}, recoveries "
+    camp = dep.last_campaign
+    check(info["substrate"] == "campaign" and camp.device.type == "cuda",
+          f"Phase 2 did not run as a campaign on the card: {info}")
+    log(f"khaos phases 1-2: {rt.phase_sequence()}, {info['cells']} cells "
+        f"({KHAOS_GRID[0]} failure points x {KHAOS_GRID[1]} CIs) as lanes of "
+        f"one campaign on {camp.device} ({camp.chunks} chunks, "
+        f"{camp.horizon} ticks), M_L error {info['m_l_pct_error']:.4f}, M_R "
+        f"error {info['m_r_pct_error']:.4f} ({profile_s:.1f} s); latencies "
+        f"{rt.profile.latencies.tolist()}, recoveries "
         f"{rt.profile.recoveries.tolist()}")
 
     # Phase 3: the job runs at cis[0]; its recovery priced there by the
     # optimizer's own re-pricing (on the optimizer's CI grid)
     tr_now = float(recording.counts.mean())
-    _, recs, _ = _variant_predictions(rt.m_l, rt.m_r, cost, [plan],
-                                      np.linspace(cis[0], cis[-1], 128),
-                                      tr_now, CheckpointPlan())
-    priced_recovery = float(recs[0][0])
-    check(priced_recovery > 0, f"the fitted models price the job's recovery "
-                               f"at {priced_recovery} s")
-    rt.cfg = replace(rt.cfg, recovery_constraint=2.0 * priced_recovery)
+    priced = priced_recovery(rt, cost, plan, cis, tr_now)
+    check(priced > 0, f"the fitted models price the job's recovery at "
+                      f"{priced} s")
+    rt.cfg = replace(rt.cfg, recovery_constraint=2.0 * priced)
     log(f"khaos constraints: latency {l_const:.4f} s (rate "
         f"{tr_now:.3f}/s x priced lossless delta {priced_lossless:.3f} s / "
         f"capacity {capacity:.3f}/s), recovery {rt.cfg.recovery_constraint:.3f}"
-        f" s (2 x {priced_recovery:.3f} s priced at CI {cis[0]:.3f} s)")
+        f" s (2 x {priced:.3f} s priced at CI {cis[0]:.3f} s)")
     run.job.reconfigure(cis[0])
     # the recovered job restarts its checkpoint timer, as the simulated
     # job does on restart: the next trigger is one CI after the restore
@@ -1027,7 +1142,8 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
                          "p": rt.controller.rescaler.p},
             "constraints": {"latency": l_const,
                             "recovery": rt.cfg.recovery_constraint},
-            "ci_grid": cis, "phases": rt.phase_sequence(),
+            "ci_grid": cis, "grid": list(KHAOS_GRID),
+            "profile_s": profile_s, "phases": rt.phase_sequence(),
             "decisions": [d.kind for d in decisions],
             "capacity_eps": capacity, "step_s": step_s, "lag": run.lags,
             "m_l_pct_error": info["m_l_pct_error"],
@@ -1037,11 +1153,11 @@ def khaos_phases(run: TrainerRun, cal: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir() or not BENCH.is_file() or \
-            not KBENCH.is_file():
+    if not (SRC / "repro_torch").is_dir() or not all(
+            p.is_file() for p in (BENCH, KBENCH, *CAMPAIGN_BENCHES)):
         print("chip_smoke.py needs the repro_torch package under src/ and "
-              "benchmarks/torch_bench_{ckpt,kernels}.py beside it",
-              file=sys.stderr)
+              "benchmarks/torch_bench_{ckpt,kernels,campaign,runtime,"
+              "proactive,recovery}.py beside it", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1081,6 +1197,14 @@ def main() -> int:
     log(f"seqmix phase: {time.monotonic() - t0:.1f} s, device memory in "
         f"use after it {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     print(json.dumps({"seqmix": table}))
+
+    # -- chaos-campaign path: the torch lane engine and the drills --------
+    t0 = time.monotonic()
+    campaign = campaign_phase(dev)
+    log(f"campaign phase: {time.monotonic() - t0:.1f} s (engine bench "
+        f"{campaign['engine_s']:.1f} s, drills {campaign['drills_s']:.1f} "
+        f"s), card {smi}")
+    print(json.dumps({"campaign": campaign}))
 
     # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
     torch.cuda.reset_peak_memory_stats()
@@ -1122,7 +1246,7 @@ def main() -> int:
         n_before = len(run.ckpt_events())
         ops.reset_launch_counts()
         t1 = time.monotonic()
-        khaos = khaos_phases(run, cal)
+        khaos = khaos_phases(run, cal, dev)
         log(f"khaos: {time.monotonic() - t1:.1f} s")
         print(json.dumps({"khaos": khaos}))
         run.int8_half(n_before)

@@ -10,14 +10,14 @@ Phase 3  qos_models        — M_L / M_R multivariate regression + rescaling p
          controller        — the runtime optimization loop + the JobHandle
                              protocol every supervised substrate implements
          runtime           — KhaosRuntime, the phase machine sequencing
-                             1 -> 2 -> 3 against any JobHandle
+                             1 -> 2 -> 3 against any JobHandle (single job
+                             or controller-in-the-loop batched campaigns)
 
 The control plane runs host-side (NumPy) — it supervises the PyTorch data
 plane (the live trainer), exactly as the paper's controller supervises
 Flink from outside the cluster.  Every module is a copy of the JAX
 package's ``repro.core`` counterpart and gives the same numbers bit for
-bit; the batched-campaign loop (``KhaosRuntime.drive_campaign``) waits
-for the port of ``sim/batched.py``.
+bit.
 """
 from repro_torch.core.arima import OnlineARIMA
 from repro_torch.core.anomaly import AnomalyDetector
@@ -31,9 +31,11 @@ from repro_torch.core.ci_optimizer import (optimize_ci, optimize_plan,
 from repro_torch.core.controller import (Decision, JobHandle, JOB_HANDLE_METHODS,
                                          KhaosController)
 from repro_torch.core.young_daly import young_daly_interval
-from repro_torch.core.profiler import ProfilingResult, run_profiling
-from repro_torch.core.runtime import (KhaosRuntime, PHASES, PhaseError,
-                                      PhaseEvent, missing_handle_methods)
+from repro_torch.core.profiler import (ProfilingResult, run_profiling,
+                                       run_profiling_campaign)
+from repro_torch.core.runtime import (CampaignSupervision, KhaosRuntime,
+                                      PHASES, PhaseError, PhaseEvent,
+                                      missing_handle_methods)
 
 __all__ = [
     "OnlineARIMA", "AnomalyDetector", "select_failure_points", "SteadyState",
@@ -42,7 +44,7 @@ __all__ = [
     "optimize_plan", "default_plan_variants", "PlanCandidate",
     "PlanOptimization", "Decision", "JobHandle", "JOB_HANDLE_METHODS",
     "KhaosController", "young_daly_interval",
-    "run_profiling", "ProfilingResult",
-    "KhaosRuntime", "missing_handle_methods",
+    "run_profiling", "run_profiling_campaign", "ProfilingResult",
+    "CampaignSupervision", "KhaosRuntime", "missing_handle_methods",
     "PhaseError", "PhaseEvent", "PHASES",
 ]

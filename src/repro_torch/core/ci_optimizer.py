@@ -25,7 +25,7 @@ write win on small states.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -82,6 +82,13 @@ class PlanCandidate:
     q_l: float
     objective: float
     overhead: float        # modeled steady-state checkpoint overhead fraction
+    sim: Optional[dict] = None   # simulate-to-verify measurement, if replayed
+
+
+#: the optimize_plan(verifier=...) contract: given [(plan, ci), ...] return
+#: one dict per candidate with measured {"latency_s", "recovery_s", ...} —
+#: sim.batched.make_plan_verifier builds one over a BatchedCampaign
+PlanVerifier = Callable[[Sequence[tuple[CheckpointPlan, float]]], list]
 
 
 @dataclass
@@ -97,6 +104,7 @@ class PlanOptimization:
     overhead: float
     baseline: PlanCandidate
     candidates: list
+    verified: bool = False   # True when a simulate-to-verify pass re-ranked
 
 
 def default_plan_variants(cost, ci_ref: float,
@@ -219,16 +227,30 @@ def optimize_plan(m_l: QoSModel, m_r: QoSModel, tr_avg: float,
                   l_const: float, r_const: float, p: float,
                   ci_min: float, ci_max: float, cost,
                   variants: Optional[Sequence[CheckpointPlan]] = None,
-                  mtbf_s: float = 3600.0, grid: int = 128
-                  ) -> PlanOptimization:
+                  mtbf_s: float = 3600.0, grid: int = 128,
+                  verifier: Optional[PlanVerifier] = None,
+                  verify_top_k: int = 3, exhaustive: bool = False,
+                  engine: Optional[str] = None) -> PlanOptimization:
     """Eq. 8 over the (CI grid x plan variants) cross-product.
 
     ``cost`` is a ``sim.costmodel.SimCostModel`` (any object with the
     plan-pricing methods works).  Ties between feasible variants at equal
     objective break toward lower modeled checkpoint overhead.
 
-    The JAX package's simulate-to-verify re-ranking (``verifier=``,
-    ``exhaustive=``, ``engine=``) comes with the port of ``sim/batched.py``.
+    With a ``verifier`` (``sim.batched.make_plan_verifier``), the top-k
+    feasible candidates are replayed through the batched chaos campaign and
+    re-ranked by their MEASURED Eq.-8 objective — the re-priced surfaces
+    pick the shortlist, the simulator picks the winner.  Candidates that
+    were replayed carry the measurement in ``PlanCandidate.sim``.
+
+    ``exhaustive=True`` drops the shortlist: EVERY feasible variant is
+    replayed and ranked by its measured objective.  That many replay lanes
+    is what the device engine exists for — pass ``engine="device"`` to
+    route the verifier's campaigns through ``sim.device.DeviceCampaign``
+    (any verifier exposing a mutable ``engine`` attribute honors it; the
+    one from ``make_plan_verifier`` does).  Because exhaustive mode scores
+    a superset of the top-k shortlist with the same measurements, its pick
+    can only match or improve on the top-k pick's measured objective.
     """
     ci = np.linspace(ci_min, ci_max, grid)
     baseline = CheckpointPlan()
@@ -264,11 +286,46 @@ def optimize_plan(m_l: QoSModel, m_r: QoSModel, tr_avg: float,
     feasible = [c for c in candidates if c.feasible]
     if feasible:
         best = min(feasible, key=lambda c: (c.objective, c.overhead))
+        verified = False
+        if verifier is not None and engine is not None \
+                and hasattr(verifier, "engine"):
+            verifier.engine = engine
+        if exhaustive:
+            verify_top_k = len(feasible)
+        if verifier is not None and verify_top_k > 0:
+            sim_best = _verify_candidates(
+                feasible, verifier, verify_top_k, l_const, r_const, p)
+            # only claim a verified pick when the simulator accepted one;
+            # otherwise keep the surface winner, unverified
+            if sim_best is not None:
+                best, verified = sim_best, True
         return PlanOptimization(best.plan, best.ci, True, best.q_r, best.q_l,
                                 best.objective, best.overhead, base_cand,
-                                candidates)
+                                candidates, verified=verified)
     least = min(candidates, key=lambda c: c.objective)
     return PlanOptimization(None, None, False, least.q_r, least.q_l,
                             least.objective, least.overhead, base_cand,
                             candidates)
 
+
+def _verify_candidates(feasible: list, verifier: PlanVerifier, top_k: int,
+                       l_const: float, r_const: float, p: float
+                       ) -> Optional[PlanCandidate]:
+    """Simulate-to-verify: replay the surface-ranked top-k through the
+    batched campaign, score the measurements with the same Eq.-8 objective,
+    and pick the sim-best among the sim-feasible (falling back to the
+    surface ranking when the simulator rejects every shortlisted plan)."""
+    short = sorted(feasible, key=lambda c: (c.objective, c.overhead))[:top_k]
+    results = verifier([(c.plan, c.ci) for c in short])
+    sim_ranked: list[tuple[float, PlanCandidate]] = []
+    for cand, meas in zip(short, results):
+        q_r = meas["recovery_s"] / r_const
+        q_l = p * meas["latency_s"] / l_const
+        obj = q_r + q_l + abs(q_r - q_l)
+        feas = 0.0 < q_r < 1.0 and 0.0 < q_l < 1.0
+        cand.sim = dict(meas, q_r=q_r, q_l=q_l, objective=obj, feasible=feas)
+        if feas:
+            sim_ranked.append((obj, cand))
+    if not sim_ranked:
+        return None
+    return min(sim_ranked, key=lambda t: (t[0], t[1].overhead))[1]

@@ -176,9 +176,18 @@ class KhaosController:
                           self.cfg.ci_min, self.cfg.ci_max)
         return res.ci if res.feasible else None
 
-    def maybe_optimize(self, job: JobHandle) -> Optional[Decision]:
+    def maybe_optimize(self, job: JobHandle,
+                       shared_pred: Optional[tuple] = None
+                       ) -> Optional[Decision]:
         """Run one optimization cycle if the period elapsed. Returns the
-        decision made (or None if not yet due)."""
+        decision made (or None if not yet due).
+
+        ``shared_pred`` is the batched-evaluation hook used by
+        ``KhaosRuntime.drive_campaign``: a pre-computed ``(pred_lat,
+        pred_rec)`` pair for this job's current (CI, TR), evaluated ONCE
+        over all lanes' vectors per period instead of twice per lane.
+        ``QoSModel.predict`` is row-independent, so the shared values are
+        bit-identical to the per-lane ones and Decisions are unchanged."""
         t = job.now()
         if t - self._last_opt_t < self.cfg.optimization_period:
             return None
@@ -198,8 +207,12 @@ class KhaosController:
             return self._decide(t, "none", lat, tr_avg, float("nan"))
 
         # localize M_L predictions to current conditions (rescaling factor p)
-        p_l, p_r = self.m_l.predict_pair(self.m_r, np.array([ci_now]), tr_avg)
-        pred_lat, pred_rec = float(p_l[0]), float(p_r[0])
+        if shared_pred is not None:
+            pred_lat, pred_rec = float(shared_pred[0]), float(shared_pred[1])
+        else:
+            p_l, p_r = self.m_l.predict_pair(self.m_r,
+                                             np.array([ci_now]), tr_avg)
+            pred_lat, pred_rec = float(p_l[0]), float(p_r[0])
         self.rescaler.track(lat, pred_lat)
         self.latency_obs.append((ci_now, tr_avg, lat))
 

@@ -7,11 +7,19 @@ recovery time is measured from the consumer-lag envelope (the online-ARIMA
 detector runs alongside on the scalar path as a secondary measurement).
 The average latency is sampled just before each injection.
 
-The port profiles on the sequential substrate: one ``Deployment``
-(``sim.SimDeployment``) per CI, point by point, via ``run_profiling``.
-The JAX package's batched campaign (``run_profiling_campaign`` over
-``sim.BatchedDeployment``, the whole grid as lanes of one sweep) comes
-with the port of ``sim/batched.py``.
+Two execution substrates implement the profiling contract:
+
+* ``Deployment`` (``sim.SimDeployment``) — one pipeline per CI, profiled
+  point-by-point via ``run_profiling``;
+* ``CampaignDeployment`` (``sim.BatchedDeployment``) — the whole z x m
+  grid as array lanes of ONE vectorized campaign, via
+  ``run_profiling_campaign`` (on the NumPy lanes or, with
+  ``engine="device"``, on the torch lane engine).
+
+The paper runs deployments in parallel on Kubernetes; the batched campaign
+maps those parallel VMs onto simulator lanes, so the full grid advances in
+one fused sweep with the same statistics as the sequential path, which
+stays as the oracle.
 """
 from __future__ import annotations
 
@@ -32,6 +40,15 @@ class Deployment(Protocol):
 
         Returns (avg_latency_before_failure_s, recovery_time_s).
         """
+        ...
+
+
+class CampaignDeployment(Protocol):
+    """All z CIs x m failure points profiled in one batched sweep."""
+
+    def profile_campaign(self, failure_times, ci_values, margin: float
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Returns ((m, z) latencies, (m, z) recoveries) for the full grid."""
         ...
 
 
@@ -67,4 +84,20 @@ def run_profiling(deployment_factory: Callable[[float], Deployment],
             if progress:
                 progress(f"profiled ci={ci:.0f}s fp#{i} tr={steady.failure_rates[i]:.0f}ev/s "
                          f"-> lat={lat*1e3:.0f}ms rec={rec:.0f}s")
+    return ProfilingResult(ci_values, steady.failure_rates.copy(), L, R)
+
+
+def run_profiling_campaign(campaign: CampaignDeployment, steady: SteadyState,
+                           ci_values, margin: float = 90.0,
+                           progress: Callable[[str], None] | None = None
+                           ) -> ProfilingResult:
+    """Phase 2 in one sweep: every (CI, failure point) cell is a lane of a
+    single batched campaign (``sim.BatchedDeployment``), statistics
+    identical to the sequential loop above."""
+    ci_values = np.asarray(ci_values, np.float64)
+    L, R = campaign.profile_campaign(steady.failure_times, ci_values, margin)
+    assert L.shape == (len(steady.failure_times), len(ci_values)), L.shape
+    if progress:
+        progress(f"campaign profiled {L.size} (ci, failure-point) lanes in "
+                 f"one sweep: rec {R.min():.0f}-{R.max():.0f}s")
     return ProfilingResult(ci_values, steady.failure_rates.copy(), L, R)

@@ -1,7 +1,8 @@
 """The Khaos control-plane runtime: ONE phase machine driving the paper's
 three phases against any ``JobHandle`` — simulator or live trainer.
-A copy of the JAX package's ``repro.core.runtime`` without its batched-
-campaign loop.
+A copy of the JAX package's ``repro.core.runtime`` (its fleet hooks,
+``adopt_models`` and the shared decision log, come with the port of
+``fleet/``).
 
 Before this module every caller (examples, launchers, benchmarks) hand-
 stitched the sequence "record -> select failure points -> profile ->
@@ -18,11 +19,18 @@ record the smoke gate (``benchmarks/run.py --smoke``) asserts phase order
 against.  ``install_models`` is the explicit escape hatch for callers
 that bring pre-fitted QoS models (it logs phases 1-2 as ``skipped``).
 
-Phase 3 is ``attach(job)`` + ``step()``: the caller ticks its substrate
-and polls ``step()``, which forwards to ``KhaosController.maybe_optimize``
-against the attached handle.  (The JAX package's ``drive_campaign``, the
-controller-in-the-loop run over a batched lane campaign, comes with the
-port of ``sim/batched.py``.)
+Phase 3 runs in two shapes:
+
+  * ``attach(job)`` + ``step()`` — classic single-job supervision: the
+    caller ticks its substrate and polls ``step()``, which forwards to
+    ``KhaosController.maybe_optimize`` against the attached handle;
+  * ``drive_campaign(campaign)`` — controller-IN-THE-LOOP over a
+    ``sim.BatchedCampaign`` (or the torch ``sim.DeviceCampaign``): every
+    lane gets its own controller and a ``BatchedLaneHandle``, the
+    campaign advances in optimization-period chunks, and each chunk
+    boundary applies a ``maybe_optimize`` step across all live lanes.
+    ``lane_cfgs`` gives selected lanes their own ``KhaosConfig`` so e.g.
+    proactive and reactive controllers run as lanes of ONE campaign.
 
 Phase 3 also carries the *mitigation ladder* for gray failures — the
 degradations of ``ft.failures`` that slow a job without killing it:
@@ -40,14 +48,15 @@ degradations of ``ft.failures`` that slow a job without killing it:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.config import KhaosConfig
 from repro_torch.core.controller import (JOB_HANDLE_METHODS, Decision, JobHandle,
                                          KhaosController)
-from repro_torch.core.profiler import ProfilingResult, run_profiling
+from repro_torch.core.profiler import (ProfilingResult, run_profiling,
+                                       run_profiling_campaign)
 from repro_torch.core.qos_models import QoSModel
 from repro_torch.core.steady_state import SteadyState, select_failure_points
 
@@ -79,17 +88,19 @@ class KhaosRuntime:
 
     Construction takes the paper's knobs (``KhaosConfig``) plus the
     optional mechanism-search attachments (``cost``/``plan_variants``/
-    ``mtbf_s``) that are forwarded to every controller this
+    ``verifier``/``mtbf_s``) that are forwarded to every controller this
     runtime builds.
     """
 
     def __init__(self, cfg: KhaosConfig, cost: Optional[Any] = None,
                  plan_variants: Optional[list] = None,
-                 mtbf_s: float = 3600.0):
+                 mtbf_s: float = 3600.0,
+                 verifier: Optional[Callable] = None):
         self.cfg = cfg
         self.cost = cost
         self.plan_variants = plan_variants
         self.mtbf_s = mtbf_s
+        self.verifier = verifier
         self.phase: str = "idle"
         self.phase_log: list[PhaseEvent] = []
         # phase artifacts
@@ -152,9 +163,10 @@ class KhaosRuntime:
                       ) -> ProfilingResult:
         """Profile the (CI x failure point) grid and fit M_L / M_R.
 
-        ``deployment`` is a per-CI deployment factory ``ci -> Deployment``
-        (the sequential path; the JAX package also takes a batched
-        campaign here, which comes with the port of ``sim/batched.py``).
+        ``deployment`` is either a ``CampaignDeployment`` (has
+        ``profile_campaign`` — the whole grid as lanes of one batched
+        campaign, e.g. ``sim.BatchedDeployment``) or a per-CI deployment
+        factory ``ci -> Deployment`` (the sequential oracle path).
         """
         if self.phase != "steady_state":
             raise PhaseError("run_profiling requires Phase 1 "
@@ -162,9 +174,14 @@ class KhaosRuntime:
         ci_values = (self.default_ci_grid() if ci_values is None
                      else np.asarray(ci_values, np.float64))
         margin = self.cfg.profile_margin_seconds if margin is None else margin
-        prof = run_profiling(deployment, self.steady, ci_values,
-                             margin=margin, progress=progress)
-        substrate = "sequential"
+        if hasattr(deployment, "profile_campaign"):
+            prof = run_profiling_campaign(deployment, self.steady, ci_values,
+                                          margin=margin, progress=progress)
+            substrate = "campaign"
+        else:
+            prof = run_profiling(deployment, self.steady, ci_values,
+                                 margin=margin, progress=progress)
+            substrate = "sequential"
         ci_f, tr_f, L_f, R_f = prof.flat()
         self.m_l = QoSModel(degree=self.cfg.model_degree,
                             ridge_lambda=self.cfg.ridge_lambda
@@ -332,3 +349,140 @@ class KhaosRuntime:
                                      {"host": host, "plan": plan}))
             plans.append(plan)
         return plans
+
+    # -- Phase 3, vectorized: controller-in-the-loop campaigns ---------------
+    def drive_campaign(self, campaign,
+                       lanes: Optional[Sequence[int]] = None,
+                       period_ticks: Optional[int] = None,
+                       lane_cfgs: Optional[dict] = None
+                       ) -> "CampaignSupervision":
+        """Run Phase 3 across every lane of a ``sim.BatchedCampaign``.
+
+        Each selected lane gets its own ``KhaosController`` and a
+        ``BatchedLaneHandle``; the campaign advances in chunks of
+        ``period_ticks`` and each chunk boundary applies one
+        ``maybe_optimize`` step per live lane — a vectorized substrate
+        under N independent scalar control loops.  The default chunk is
+        the optimization period, so decisions fire at t0 + k*period;
+        the scalar loop, polling after every tick, fires its first
+        decision one tick after t0 and then every period from there.
+        Pass ``period_ticks=1`` to poll every tick and reproduce the
+        scalar decision clock exactly (bit-exact per lane, at more
+        Python overhead per tick).  Requires the campaign to record
+        history (the handles' latency windows read it).
+
+        ``lane_cfgs`` maps lane id -> ``KhaosConfig`` override for that
+        lane's controller (lanes absent from the map use the runtime's
+        config) — the head-to-head harness: proactive vs reactive
+        controllers supervising twin lanes of the SAME campaign.  When an
+        anomaly detector is attached, the supervised lane's metrics are
+        fed to it at every chunk boundary and a sustained anomaly fires
+        the reprofile rung mid-campaign.
+        """
+        if self.phase not in ("profiled", "optimizing"):
+            raise PhaseError("drive_campaign requires Phase 2 to have "
+                             "completed")
+        from repro_torch.sim.batched import BatchedLaneHandle   # local: core must
+        # stay importable without the sim package loaded first
+        lane_ids = list(range(campaign.n_lanes)) if lanes is None \
+            else list(lanes)
+        handles = [BatchedLaneHandle(campaign, i) for i in lane_ids]
+        controllers = [self._make_controller((lane_cfgs or {}).get(i))
+                       for i in lane_ids]
+        self._active_controllers = list(controllers)
+        period = max(1, int(period_ticks if period_ticks is not None
+                            else round(self.cfg.optimization_period)))
+        if self.phase == "profiled":
+            self._transition("optimizing", handle="BatchedLaneHandle",
+                             lanes=len(lane_ids))
+        while not campaign.done:
+            campaign.run(n_ticks=period)
+            live = [(ctl, h) for ctl, h in zip(controllers, handles)
+                    if h.alive()]
+            preds = self._shared_predictions(live)
+            for (ctl, h), pred in zip(live, preds):
+                ctl.maybe_optimize(h, shared_pred=pred)
+            if self.anomaly is not None:
+                self._feed_campaign_anomaly(handles, lane_ids)
+        # the scalar loop polls once more after its final tick (alive()
+        # is already False there, so the in-loop polls skip it); actuation
+        # on a finished lane is as inert as the scalar's post-loop one
+        pairs = list(zip(controllers, handles))
+        for (ctl, h), pred in zip(pairs, self._shared_predictions(pairs)):
+            ctl.maybe_optimize(h, shared_pred=pred)
+        return CampaignSupervision(campaign, lane_ids, handles, controllers)
+
+    def _feed_campaign_anomaly(self, handles, lane_ids) -> None:
+        """One anomaly-detector sample from the supervised lane's trailing
+        window (skipped while the window is empty or the lane finished)."""
+        if self.anomaly_lane not in lane_ids:
+            return
+        h = handles[lane_ids.index(self.anomaly_lane)]
+        tr = h.avg_throughput(self.cfg.optimization_period)
+        lat = h.avg_latency(self.cfg.optimization_period)
+        if not (np.isfinite(tr) and np.isfinite(lat)):
+            return
+        vals = {m: {"throughput": tr, "latency": lat}[m]
+                for m in self.anomaly.metrics}
+        self.observe_metrics(h.now(), vals, healthy=h.healthy())
+
+    def _shared_predictions(self, pairs: Sequence[tuple]) -> list:
+        """One ``QoSModel.predict`` over ALL lanes' (CI, TR) vectors per
+        optimization period, instead of two scalar evaluations per lane —
+        the vectorized-controller cut for very wide supervised campaigns.
+        Only lanes whose ``maybe_optimize`` will actually reach the
+        prediction site are evaluated (the gating predicates below mirror
+        its early exits exactly), and ``QoSModel.predict`` is
+        row-independent, so per-lane Decisions are BIT-identical to the
+        per-lane evaluation loop (asserted in tests).  Gating reads each
+        controller's OWN config (``lane_cfgs`` lanes may differ from the
+        runtime's)."""
+        rows: list[tuple[int, float, float]] = []
+        for i, (ctl, h) in enumerate(pairs):
+            if h.now() - ctl._last_opt_t < ctl.cfg.optimization_period:
+                continue                      # not due: returns None
+            if not h.healthy():
+                continue                      # "unhealthy" decision
+            lat = h.avg_latency(ctl.cfg.optimization_period)
+            tr = h.avg_throughput(ctl.cfg.optimization_period)
+            if not (np.isfinite(lat) and np.isfinite(tr)):
+                continue                      # empty-window "none" decision
+            rows.append((i, h.current_ci(), tr))
+        preds: list = [None] * len(pairs)
+        if rows:
+            idx, ci, tr = zip(*rows)
+            p_l, p_r = self.m_l.predict_pair(self.m_r,
+                                             np.asarray(ci, np.float64),
+                                             np.asarray(tr, np.float64))
+            for j, i in enumerate(idx):
+                preds[i] = (float(p_l[j]), float(p_r[j]))
+        return preds
+
+
+@dataclass
+class CampaignSupervision:
+    """Result of a controller-in-the-loop campaign run."""
+    campaign: Any
+    lane_ids: list
+    handles: list
+    controllers: list
+
+    def decisions(self, lane: int) -> list:
+        return self.controllers[self.lane_ids.index(lane)].decisions
+
+    def reconfigurations(self, lane: int) -> list:
+        return self.handles[self.lane_ids.index(lane)].reconfigurations
+
+    def summary(self) -> dict:
+        kinds: dict[str, int] = {}
+        for ctl in self.controllers:
+            for d in ctl.decisions:
+                kinds[d.kind] = kinds.get(d.kind, 0) + 1
+        return {
+            "lanes": len(self.lane_ids),
+            "decisions_by_kind": kinds,
+            "reconfigured_lanes": sum(1 for h in self.handles
+                                      if h.reconfigurations),
+            "plan_switched_lanes": sum(1 for h in self.handles
+                                       if h.plan_changes),
+        }
