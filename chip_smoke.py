@@ -39,19 +39,37 @@ Phases, in order (any failure exits non-zero, before the result line):
                calibration;
   campaign     the chaos-campaign path on the torch lane engine
                (``sim.DeviceCampaign``, float64 tensors on the card):
-               ``benchmarks/torch_bench_campaign.py`` at its full size —
+               ``benchmarks/torch_bench_campaign.py`` —
                the parity matrix (plan x crash kind x degradation x CI,
                60 lanes x 900 ticks) bit for bit against the NumPy lane
                engine (no divergent lane), lane-ticks/s of both engines at
-               1e3, 1e4 and 1e5 lanes x 2000 ticks, a profiler trace of
+               1e3, 1e4 and 1e5 lanes x 1000 ticks (the bench's 2000 cut
+               to make room for the drills), a profiler trace of
                the torch engine's ticks (device busy share, launches a
                tick) at 1e3 and 1e5 lanes, and the exhaustive plan
                sweep on the card against the top-3 NumPy replay (its
-               measured objective no worse); then the runtime drill (a
-               4-lane controller-in-the-loop campaign and a micro trainer's
-               plan switch), the proactive drill, and the recovery drill's
-               ``bench_sim/3`` artifact, validated in a temporary
-               directory.  Printed as one ``{"campaign": {...}}`` line;
+               measured objective no worse).  Printed as one
+               ``{"campaign": {...}}`` line;
+  drills       the seven drill twins of ``run.py --smoke`` on the card
+               (``benchmarks/torch_run.py``: the checkpoint bench on tiny
+               states, the proactive drill, the recovery drill's
+               ``bench_sim/3`` artifact embedding the campaign phase's
+               full-size device section, the replication drills, the
+               runtime drill and the 3-job fleet drill), each once; E11
+               in full (``benchmarks/torch_bench_fleet.py``: 8 jobs and a
+               rejected firehose under one ``FleetSupervisor``) on the
+               torch lane engine with its whole validator, wall-clock gate
+               included, and once more on the NumPy lanes as the oracle
+               (every key but ``wallclock`` equal, floats bit for bit; the
+               NumPy wall-clock ratio printed, not gated); then
+               ``card_drill`` (``benchmarks/torch_bench_replication.py``):
+               the trainer's device-encode lossless plan with one ring
+               replica per shard over one yi-6b block's
+               ``params/layers/*`` leaves (173,023,232 float32 elements),
+               a full, a seeded 1e-3 randn perturbation saved as a delta
+               (#1), host 2 killed, the degraded partial restore (#3)
+               checked BIT-EQUAL with fewer bytes pulled than the full
+               holds.  Printed as one ``{"drills": {...}}`` line;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -81,10 +99,12 @@ Phases, in order (any failure exits non-zero, before the result line):
                max|delta|/254 bound.
 
 Kernel launch counts are set to 0 just before the kernel-bench path and
-read just after it (#7-#9), likewise around the calibration path (#5/#6)
-and around the trainer path, from the lossless half to the int8 half
-(#1-#4).  The line before the last is
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+read just after it (#7-#9), likewise around the drills path (#1 and #3
+must launch there; each row reports this path's count as
+``drills_launches``), around the calibration path (#5/#6) and around the
+trainer path, from the lossless half to the int8 half (#1-#4).  The line
+before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
 With no CUDA device, or without the ``src/repro_torch`` package beside
 this file, it exits non-zero and prints no result.  Checkpoints go to
 ``.chip_smoke_ckpt/`` in the checkout and are removed at the end.
@@ -112,11 +132,20 @@ SRC = ROOT / "src"
 CKPT_DIR = ROOT / ".chip_smoke_ckpt"
 BENCH = ROOT / "benchmarks" / "torch_bench_ckpt.py"
 KBENCH = ROOT / "benchmarks" / "torch_bench_kernels.py"
-#: the chaos-campaign drills: the E12 engine bench, the runtime, proactive
-#: and recovery drills
-CAMPAIGN_BENCHES = tuple(ROOT / "benchmarks" / f"torch_bench_{n}.py"
-                         for n in ("campaign", "runtime", "proactive",
-                                   "recovery"))
+#: the E12 engine bench of the campaign phase, and the ticks of its
+#: throughput lanes (the bench's THR_TICKS is 2000; halved to keep the
+#: script's time with the drills phase)
+CBENCH = ROOT / "benchmarks" / "torch_bench_campaign.py"
+THR_HORIZON = 1000
+#: the drills phase: the run.py --smoke twin, E11 and the card drill (the
+#: runner loads the other drill benches beside it)
+DRILL_BENCHES = (ROOT / "benchmarks" / "torch_run.py",
+                 *(ROOT / "benchmarks" / f"torch_bench_{n}.py"
+                   for n in ("fleet", "replication", "runtime", "proactive",
+                             "recovery")))
+#: the kernels the drills path must launch: the card drill's delta save
+#: and its degraded restore
+DRILL_KERNELS = ("flat_lossless_encode", "lossless_decode")
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -670,18 +699,15 @@ def seqmix_phase(dev) -> tuple[dict, list]:
 
 def campaign_phase(dev) -> dict:
     """The chaos-campaign path on the card's torch lane engine
-    (``benchmarks/torch_bench_campaign.py``, the E12 twin, at its full
-    size): the parity matrix at horizon 900 against the NumPy engine, which
-    must have no divergent lane; lane-ticks/s of both engines at
-    1e3/1e4/1e5 lanes x 2000 ticks; a profiler trace of the torch engine's
-    ticks at 1e3 and 1e5 lanes; the exhaustive plan sweep on the card
-    against the top-3 NumPy replay.  Then the runtime and proactive drills on the
-    card, and the recovery drill's ``bench_sim/3`` artifact (holding the
-    whole section) written into a temporary directory and validated."""
-    import tempfile
-
+    (``benchmarks/torch_bench_campaign.py``, the E12 twin): the parity
+    matrix at horizon 900 against the NumPy engine, which must have no
+    divergent lane; lane-ticks/s of both engines at 1e3/1e4/1e5 lanes x
+    ``THR_HORIZON`` ticks; a profiler trace of the torch engine's ticks
+    at 1e3 and 1e5 lanes; the exhaustive plan sweep on the card against
+    the top-3 NumPy replay.  The drills phase validates the
+    section through the recovery drill's ``bench_sim/3`` artifact."""
     import torch
-    cbench, rbench, pbench, recbench = (_module(p) for p in CAMPAIGN_BENCHES)
+    cbench = _module(CBENCH)
     out: dict = {}
     t0 = time.monotonic()
     parity = cbench.parity_check(horizon=900, device=dev)
@@ -691,21 +717,65 @@ def campaign_phase(dev) -> dict:
     check(not parity["fma_contraction"] and parity["phase_matches_numpy"],
           f"device arithmetic differs from NumPy's: {parity}")
     check(parity["recoveries"] > 0, "the parity matrix recovered nothing")
-    throughput = cbench.bench_throughput(device=dev)
+    throughput = cbench.bench_throughput(horizon=THR_HORIZON, device=dev)
     out["trace"] = [cbench.trace_ticks(n, device=dev) for n in (1000, 100_000)]
     sweep = cbench.bench_sweep(device=dev)
     section = {"throughput": throughput, "parity": parity, "sweep": sweep}
     out["engine_s"] = time.monotonic() - t0
-    t1 = time.monotonic()
+    out["section"] = section
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _canonical(art: dict) -> str:
+    """An artifact without its host-clock section, as exact JSON (a float's
+    repr round-trips its bits, so equal strings mean bit-equal floats)."""
+    return json.dumps({k: v for k, v in art.items() if k != "wallclock"},
+                      sort_keys=True)
+
+
+def drills_phase(dev, section: dict) -> dict:
+    """The drills path on the card: the seven ``run.py --smoke`` twins
+    (``benchmarks/torch_run.py``; the recovery drill's ``bench_sim/3``
+    artifact embeds the campaign phase's full-size ``section`` in place of
+    a smoke-sized one), E11 on the torch lane engine under its whole
+    validator and on the NumPy lanes as its oracle, and ``card_drill`` at
+    one yi-6b block under ``CKPT_DIR`` (removed after)."""
+    import tempfile
+
+    import torch
+    run, fleet, repl = (_module(p) for p in DRILL_BENCHES[:3])
+    out: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out["runtime"] = rbench.smoke(os.path.join(tmp, "runtime"),
-                                      device=dev)
-        out["proactive"] = pbench.smoke(device=dev)
-        art = recbench.smoke(os.path.join(tmp, "sim"),
-                             proactive=out["proactive"], device_sec=section,
-                             device=dev)
-    out["drills_s"] = time.monotonic() - t1
-    out.update(section=section, e4=art["e4"], grid=art["grid"])
+        t0 = time.monotonic()
+        res = run.smoke(tmp, device=dev, device_sec=section)
+        out["smoke_s"] = time.monotonic() - t0
+        out["smoke_seconds"] = res["seconds"]
+        out["replication"] = res["replication"]
+        out["fleet_smoke_transfer"] = res["fleet"]["transfer"]
+        out["e4"] = res["recovery"]["e4"]
+        out["grid"] = res["recovery"]["grid"]
+        t0 = time.monotonic()
+        art = fleet.bench_fleet(os.path.join(tmp, "BENCH_fleet_torch.json"),
+                                engine="device", device=dev)
+        out["e11_device_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        oracle = fleet.bench_fleet(os.path.join(tmp, "BENCH_fleet_np.json"),
+                                   engine="numpy", gate_wallclock=False)
+        out["e11_numpy_s"] = time.monotonic() - t0
+    check(_canonical(art) == _canonical(oracle),
+          "E11 on the torch lane engine differs from the NumPy lanes")
+    out["e11"] = {k: art[k] for k in ("transfer", "twins", "rejected",
+                                      "decisions_by_kind", "pooled_phase2",
+                                      "shared_campaigns")}
+    out["e11"]["n_optimizing"] = sum(
+        1 for j in art["jobs"].values() if j["phase"] == "optimizing")
+    out["e11_wallclock"] = {"device": art["wallclock"],
+                            "numpy": oracle["wallclock"]}
+    t0 = time.monotonic()
+    out["card_drill"] = repl.card_drill(str(CKPT_DIR / "card_drill"), dev)
+    out["card_drill_s"] = time.monotonic() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out
@@ -1154,10 +1224,11 @@ def khaos_phases(run: TrainerRun, cal: dict, dev) -> dict:
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not all(
-            p.is_file() for p in (BENCH, KBENCH, *CAMPAIGN_BENCHES)):
+            p.is_file() for p in (BENCH, KBENCH, CBENCH, *DRILL_BENCHES)):
         print("chip_smoke.py needs the repro_torch package under src/ and "
-              "benchmarks/torch_bench_{ckpt,kernels,campaign,runtime,"
-              "proactive,recovery}.py beside it", file=sys.stderr)
+              "benchmarks/torch_run.py and torch_bench_{ckpt,kernels,"
+              "campaign,fleet,replication,runtime,proactive,recovery}.py "
+              "beside it", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1178,7 +1249,9 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the TF32 switches off)
     from repro_torch.config import replace
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rglru, rwkv6
     from repro_torch.kernels.ckpt_delta import ops
+    families = (ops, flash_attention, rglru, rwkv6)
 
     t0 = time.monotonic()
     for name, (path, secs) in build_all().items():
@@ -1198,13 +1271,43 @@ def main() -> int:
         f"use after it {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     print(json.dumps({"seqmix": table}))
 
-    # -- chaos-campaign path: the torch lane engine and the drills --------
+    # -- chaos-campaign path: the torch lane engine ----------------------
     t0 = time.monotonic()
     campaign = campaign_phase(dev)
-    log(f"campaign phase: {time.monotonic() - t0:.1f} s (engine bench "
-        f"{campaign['engine_s']:.1f} s, drills {campaign['drills_s']:.1f} "
-        f"s), card {smi}")
+    log(f"campaign phase: {time.monotonic() - t0:.1f} s, card {smi}")
     print(json.dumps({"campaign": campaign}))
+
+    # -- drills path: run.py --smoke's twins, E11, the card drill (#1/#3) --
+    for f in families:
+        f.reset_launch_counts()
+    t0 = time.monotonic()
+    drills = drills_phase(dev, campaign["section"])
+    drill_launches: dict = {}
+    for f in families:
+        drill_launches.update(f.launch_counts())
+    drills["phase_s"] = time.monotonic() - t0
+    drills["launches"] = drill_launches
+    wc = drills["e11_wallclock"]
+    cd = drills["card_drill"]
+    log(f"drills phase: {drills['phase_s']:.1f} s (smoke "
+        f"{drills['smoke_s']:.1f} s, E11 device {drills['e11_device_s']:.1f}"
+        f" s, numpy {drills['e11_numpy_s']:.1f} s, card drill "
+        f"{drills['card_drill_s']:.1f} s); E11 controller wall-clock "
+        f"device {wc['device']['fleet_s']:.4f} s vs one job "
+        f"{wc['device']['one_job_s']:.4f} s ({wc['device']['ratio']:.3f}x), "
+        f"numpy {wc['numpy']['fleet_s']:.4f} vs "
+        f"{wc['numpy']['one_job_s']:.4f} s ({wc['numpy']['ratio']:.3f}x, "
+        f"not gated), pooled Phase 2 on the device engine "
+        f"{wc['device']['pooled_phase2_s']:.3f} s; card drill "
+        f"{cd['bytes_written']} bytes written, saves "
+        f"{cd['full_save_s']:.2f} + {cd['delta_save_s']:.2f} s, restore "
+        f"{cd['restore_s']:.2f} s, pulled fraction "
+        f"{cd['measured_fraction']:.4f}; launches {drill_launches}; card "
+        f"{smi}")
+    print(json.dumps({"drills": drills}))
+    for name in DRILL_KERNELS:
+        check(drill_launches[name] > 0,
+              f"{name} was not launched on the drills path")
 
     # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
     torch.cuda.reset_peak_memory_stats()
@@ -1278,7 +1381,8 @@ def main() -> int:
         if name in SEQMIX_KERNELS:
             r = seqmix[name]
             rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, **r, "path": "kernel bench"})
+                         "replaces": replaces, **r, "path": "kernel bench",
+                         "drills_launches": drill_launches[name]})
             continue
         r = results[name]
         n = (calib_launches if name in CALIBRATION_KERNELS
@@ -1290,6 +1394,7 @@ def main() -> int:
                      "bound_by": r["bound_by"], "library_ms": None,
                      "mismatches": r["mismatches"],
                      "elements": r["elements"],
+                     "drills_launches": drill_launches[name],
                      "path": ("calibration" if name in CALIBRATION_KERNELS
                               else "trainer")})
     log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null for "

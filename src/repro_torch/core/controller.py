@@ -148,8 +148,20 @@ class KhaosController:
     plan_variants: Optional[list] = None
     mtbf_s: float = 3600.0
     decisions: list = field(default_factory=list)
+    # fleet-shared decision log: when many controllers supervise many jobs
+    # in one process (fleet.FleetSupervisor), every Decision is ALSO
+    # appended to ``decision_log`` as ``(label, Decision)`` — one audit
+    # trail across the whole fleet, in global decision order.  ``label``
+    # names this controller's job in that log.  Both default off, so a
+    # solo controller is unchanged.
+    label: Optional[str] = None
+    decision_log: Optional[list] = None
     _last_reconfig_t: float = -1e18
     _last_opt_t: float = -1e18
+    # the M_L evaluation of the most recent due poll — consumers that
+    # score the same (CI, TR) point (fleet divergence watchdogs) read it
+    # instead of paying a second ``QoSModel.predict``
+    last_pred_lat: float = float("nan")
     # error-analysis tracking (Tables II(a)/III(a))
     latency_obs: list = field(default_factory=list)    # (ci, tr, observed)
     recovery_obs: list = field(default_factory=list)
@@ -192,6 +204,7 @@ class KhaosController:
         if t - self._last_opt_t < self.cfg.optimization_period:
             return None
         self._last_opt_t = t
+        self.last_pred_lat = float("nan")
 
         if not job.healthy():
             return self._decide(t, "unhealthy", float("nan"), float("nan"),
@@ -213,6 +226,7 @@ class KhaosController:
             p_l, p_r = self.m_l.predict_pair(self.m_r,
                                              np.array([ci_now]), tr_avg)
             pred_lat, pred_rec = float(p_l[0]), float(p_r[0])
+        self.last_pred_lat = pred_lat
         self.rescaler.track(lat, pred_lat)
         self.latency_obs.append((ci_now, tr_avg, lat))
 
@@ -348,6 +362,8 @@ class KhaosController:
                 new_plan=None) -> Decision:
         d = Decision(t, kind, lat, tr, rec, new_ci, new_plan)
         self.decisions.append(d)
+        if self.decision_log is not None:
+            self.decision_log.append((self.label, d))
         return d
 
     # -- post-execution error analysis (paper Tables II(a)/III(a)) -----------

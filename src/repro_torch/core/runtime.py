@@ -1,8 +1,7 @@
 """The Khaos control-plane runtime: ONE phase machine driving the paper's
 three phases against any ``JobHandle`` — simulator or live trainer.
-A copy of the JAX package's ``repro.core.runtime`` (its fleet hooks,
-``adopt_models`` and the shared decision log, come with the port of
-``fleet/``).
+A copy of the JAX package's ``repro.core.runtime``, fleet hooks
+(``adopt_models``, the shared decision log) included.
 
 Before this module every caller (examples, launchers, benchmarks) hand-
 stitched the sequence "record -> select failure points -> profile ->
@@ -122,6 +121,14 @@ class KhaosRuntime:
         self._reprofile_source: Optional[tuple] = None
         self._reprofiled_episode = False     # one reprofile per anomaly
         self._active_controllers: list = []  # model-swap targets
+        # fleet hooks: every controller this runtime builds logs its
+        # Decisions into the shared ``decision_log`` under ``label``
+        # (fleet.FleetSupervisor threads one list through N runtimes);
+        # ``transferred`` records that Phase 2 was skipped via the
+        # QoS-model-transfer fast path (``adopt_models``)
+        self.decision_label: Optional[str] = None
+        self.decision_log: Optional[list] = None
+        self.transferred: bool = False
 
     # -- phase machinery ----------------------------------------------------
     def _transition(self, to: str, **info) -> None:
@@ -211,6 +218,37 @@ class KhaosRuntime:
         self._transition("profiled", skipped=True)
         self.m_l, self.m_r = m_l, m_r
 
+    def adopt_models(self, m_l: QoSModel, m_r: QoSModel,
+                     source: str = "registry") -> None:
+        """The QoS-model TRANSFER fast path (fleet admission): Phase 1 ran
+        for real — this job's steady state and failure points are its own —
+        but Phase 2 is skipped because a fitted neighbor with a matching
+        profile fingerprint already exists (``fleet.QoSModelRegistry``).
+        The machine walks ``steady_state -> profiled`` without a campaign;
+        the transition is logged with ``transferred=True`` and the donor
+        ``source`` so ``phase_sequence`` stays truthful.  Because
+        ``steady`` is real, a later divergence-watchdog ``reprofile()`` is
+        fully legal — that is the fallback when the transferred models turn
+        out not to describe this job after all."""
+        if self.phase != "steady_state":
+            raise PhaseError("adopt_models is the skip-Phase-2 fast path "
+                             "and requires Phase 1 (record_steady_state) "
+                             "to have completed")
+        self._transition("profiled", transferred=True, source=source)
+        self.m_l, self.m_r = m_l, m_r
+        self.transferred = True
+
+    def attach_decision_log(self, log: list, label: str) -> None:
+        """Arm the fleet-shared decision log: every controller this runtime
+        builds (single-job, campaign, or reprofile-rebuilt) appends its
+        Decisions to ``log`` as ``(label, Decision)`` — the one audit trail
+        a ``FleetSupervisor`` reads across all supervised jobs."""
+        self.decision_log = log
+        self.decision_label = label
+        for ctl in self._active_controllers:
+            ctl.decision_log = log
+            ctl.label = label
+
     # -- Phase 3: runtime optimization (§III-D) ------------------------------
     def _make_controller(self, cfg: Optional[KhaosConfig] = None
                          ) -> KhaosController:
@@ -218,7 +256,9 @@ class KhaosRuntime:
         return KhaosController(cfg=cfg or self.cfg, m_l=self.m_l,
                                m_r=self.m_r, cost=self.cost,
                                plan_variants=self.plan_variants,
-                               mtbf_s=self.mtbf_s)
+                               mtbf_s=self.mtbf_s,
+                               label=self.decision_label,
+                               decision_log=self.decision_log)
 
     def initial_ci(self, tr_avg: float) -> Optional[float]:
         """The Eq.-8 optimum at the recorded average throughput (the CI the

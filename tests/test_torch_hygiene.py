@@ -33,15 +33,17 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert "repro_torch.launch.train" in mods
     assert "repro_torch.core.runtime" in mods
     for mod in ("sim.batched", "sim.device", "core.profiler",
-                "core.ci_optimizer", "core.controller"):
+                "core.ci_optimizer", "core.controller", "fleet",
+                "fleet.registry", "fleet.admission", "fleet.supervisor"):
         assert f"repro_torch.{mod}" in mods
     for family in ("ckpt_delta", "flash_attention", "rglru", "rwkv6"):
         for part in ("", ".kernel", ".ops", ".ref"):
             assert f"repro_torch.kernels.{family}{part}" in mods
     benches = [str(p) for p in PORT_BENCHES]
     for name in ("ckpt", "kernels", "runtime", "proactive", "campaign",
-                 "recovery"):
+                 "recovery", "fleet", "replication"):
         assert any(p.endswith(f"torch_bench_{name}.py") for p in benches)
+    assert any(p.endswith("torch_run.py") for p in benches)
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
