@@ -70,6 +70,34 @@ Phases, in order (any failure exits non-zero, before the result line):
                (#1), host 2 killed, the degraded partial restore (#3)
                checked BIT-EQUAL with fewer bytes pulled than the full
                holds.  Printed as one ``{"drills": {...}}`` line;
+  serve        the serving path (``benchmarks/torch_bench_serve.py``)
+               at published widths and full depth, one row per family:
+               yi-6b, olmoe-1b-7b, recurrentgemma-2b (a 2048 prompt that
+               fills its ring, then wraps), rwkv6-3b and qwen2-vl-7b
+               (stub vision embeddings, M-RoPE), random weights from a
+               seed.  Each row's float32 prefill + 32 teacher-forced
+               decode steps within 1e-3 of the row norm of
+               ``forward_logits`` over prompt + continuation (an MoE at
+               the capacity where no token drops); bf16 served through
+               ``StreamServer`` (qwen2-vl through the prefill and decode
+               steps), timed: prefill ms, decode ms a step, tokens/s,
+               device memory peak, top-1 agreement with float32 (not
+               gated); yi and recurrentgemma with the int8 KV cache from
+               ``cache_specs`` zeros over 64 steps, greedy agreement with
+               bf16 reported (the reference's bound, > 0.85, is held at
+               their SMOKE configs below).  whisper-small (1500 frames,
+               decoder 416 ->
+               32) is held to the same float32 prefill + decode on the
+               host CPU (its decode does not reproduce its prefill, ROADMAP
+               Q2).  Then all ten SMOKE configs in float32 on the card
+               against the CPU, same weights: prefill + 4 greedy decode
+               steps, tokens equal, logits within 1e-4; yi's and
+               recurrentgemma's SMOKE int8 KV agreement with bf16 > 0.85
+               on the card (the reference's test).  The nine
+               kernels' launches are counted around it and printed (0:
+               the reference model calls none).  Everything it allocated
+               is freed before the calibration.  Printed as one
+               ``{"serve": {...}}`` line;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -101,7 +129,8 @@ Phases, in order (any failure exits non-zero, before the result line):
 Kernel launch counts are set to 0 just before the kernel-bench path and
 read just after it (#7-#9), likewise around the drills path (#1 and #3
 must launch there; each row reports this path's count as
-``drills_launches``), around the calibration path (#5/#6) and around the
+``drills_launches``), around the serve path (reported, not gated),
+around the calibration path (#5/#6) and around the
 trainer path, from the lossless half to the int8 half (#1-#4).  The line
 before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -146,6 +175,8 @@ DRILL_BENCHES = (ROOT / "benchmarks" / "torch_run.py",
 #: the kernels the drills path must launch: the card drill's delta save
 #: and its degraded restore
 DRILL_KERNELS = ("flat_lossless_encode", "lossless_decode")
+#: the serve phase: prefill, decode and StreamServer for every family
+SBENCH = ROOT / "benchmarks" / "torch_bench_serve.py"
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -781,6 +812,22 @@ def drills_phase(dev, section: dict) -> dict:
     return out
 
 
+def serve_phase(dev) -> dict:
+    """The serving path at published widths and full depth
+    (``benchmarks/torch_bench_serve.py``): one row per family, each held
+    to its float32 oracle, served in bf16 (timed), yi and recurrentgemma
+    also with the int8 KV cache; then the ten SMOKE configs on the card
+    against the CPU.  Everything it allocated is freed after; the gates
+    that failed are listed under ``gate_failures``."""
+    import torch
+    sbench = _module(SBENCH)
+    out = sbench.serve_phase(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["gate_failures"] = sbench.gate_failures(out)
+    return out
+
+
 def calibration_phase(model_cfg, dev) -> dict:
     """The device section of the checkpoint calibration on a fresh train
     state of its own (freed after): fused encodes vs the per-leaf
@@ -1224,11 +1271,12 @@ def khaos_phases(run: TrainerRun, cal: dict, dev) -> dict:
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not all(
-            p.is_file() for p in (BENCH, KBENCH, CBENCH, *DRILL_BENCHES)):
+            p.is_file() for p in (BENCH, KBENCH, CBENCH, SBENCH,
+                                  *DRILL_BENCHES)):
         print("chip_smoke.py needs the repro_torch package under src/ and "
               "benchmarks/torch_run.py and torch_bench_{ckpt,kernels,"
-              "campaign,fleet,replication,runtime,proactive,recovery}.py "
-              "beside it", file=sys.stderr)
+              "campaign,fleet,replication,runtime,proactive,recovery,"
+              "serve}.py beside it", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1309,6 +1357,44 @@ def main() -> int:
         check(drill_launches[name] > 0,
               f"{name} was not launched on the drills path")
 
+    # -- serving path: prefill, decode, StreamServer, every family --------
+    for f in families:
+        f.reset_launch_counts()
+    t0 = time.monotonic()
+    serve = serve_phase(dev)
+    serve_launches: dict = {}
+    for f in families:
+        serve_launches.update(f.launch_counts())
+    serve["phase_s"] = time.monotonic() - t0
+    serve["launches"] = serve_launches
+    for r in serve["rows"]:
+        log(f"{r['row']}: {r['arch']} {r['layers']}"
+            f"{'+' + str(r['decoder_layers']) if r['decoder_layers'] else ''}"
+            f" layers, {r['params']:,} params, B {r['batch']}, prompt "
+            f"{r['prompt']} -> {r['new']}; oracle ({r['oracle']}) max rel "
+            f"{r['oracle_max_rel']:.3e}; bf16 prefill {r['prefill_ms']:.1f} "
+            f"ms, decode {r['decode_ms']:.2f} ms/step (device busy "
+            f"{r['decode_trace']['device_busy_share']:.1%}, "
+            f"{r['decode_trace']['launches_per_step']:.0f} launches a step),"
+            f" {r['served_by']} "
+            f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gb']:.2f} GB "
+            f"(oracle {r['oracle_peak_gb']:.2f}), top-1 vs f32 "
+            f"{r['top1_vs_f32']:.3f}, int8 agreement with bf16 "
+            f"{r.get('int8_agree', 'n/a')} (bf16 with f32 "
+            f"{r.get('int8_bf16_vs_f32', 'n/a')}, not gated); row "
+            f"{r['row_s']:.1f} s")
+    smoke_int8 = {x["arch"]: x["int8_agree"] for x in serve["smoke"]
+                  if "int8_agree" in x}
+    log(f"serve phase: {serve['phase_s']:.1f} s (SMOKE sweep "
+        f"{serve['smoke_s']:.1f} s, worst rel "
+        f"{max(x['max_rel'] for x in serve['smoke']):.3e}, int8 agreement "
+        f"{smoke_int8}); launches of the "
+        f"nine kernels {serve_launches} (the reference model calls none); "
+        f"device memory in use after it "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; card {smi}")
+    print(json.dumps({"serve": serve}))
+    check(not serve["gate_failures"], "; ".join(serve["gate_failures"]))
+
     # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1382,7 +1468,8 @@ def main() -> int:
             r = seqmix[name]
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, **r, "path": "kernel bench",
-                         "drills_launches": drill_launches[name]})
+                         "drills_launches": drill_launches[name],
+                         "serve_launches": serve_launches[name]})
             continue
         r = results[name]
         n = (calib_launches if name in CALIBRATION_KERNELS
@@ -1395,6 +1482,7 @@ def main() -> int:
                      "mismatches": r["mismatches"],
                      "elements": r["elements"],
                      "drills_launches": drill_launches[name],
+                     "serve_launches": serve_launches[name],
                      "path": ("calibration" if name in CALIBRATION_KERNELS
                               else "trainer")})
     log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null for "

@@ -1,17 +1,27 @@
 """Architecture config registry of the port.
 
 Each module exposes ``CONFIG`` (the published config) and ``SMOKE`` (a
-reduced same-family config for CPU tests), as in the JAX package.  The
-model zoo runs only the dense family so far (yi-6b); recurrentgemma-2b,
-rwkv6-3b and grok-1-314b are registered as data: the kernel bench
-(``benchmarks/torch_bench_kernels.py``) reads its attention, RG-LRU and
-WKV-6 widths from them.
+reduced same-family config for CPU tests), as in the JAX package, and the
+registry lists the same ten architectures in the same order.  The model
+zoo (``repro_torch.models.zoo``) runs all six families: dense, moe,
+hybrid, ssm, vlm and audio.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("yi-6b", "recurrentgemma-2b", "rwkv6-3b", "grok-1-314b")
+ARCH_IDS = (
+    "internlm2-20b",
+    "yi-6b",
+    "codeqwen1.5-7b",
+    "qwen2.5-14b",
+    "recurrentgemma-2b",
+    "olmoe-1b-7b",
+    "grok-1-314b",
+    "rwkv6-3b",
+    "qwen2-vl-7b",
+    "whisper-small",
+)
 
 
 def _module(arch: str):
@@ -28,3 +38,6 @@ def get_config(arch: str):
 def get_smoke_config(arch: str):
     return _module(arch).SMOKE
 
+
+def list_archs() -> tuple[str, ...]:
+    return ARCH_IDS

@@ -34,14 +34,18 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert "repro_torch.core.runtime" in mods
     for mod in ("sim.batched", "sim.device", "core.profiler",
                 "core.ci_optimizer", "core.controller", "fleet",
-                "fleet.registry", "fleet.admission", "fleet.supervisor"):
+                "fleet.registry", "fleet.admission", "fleet.supervisor",
+                "runtime.server", "launch.serve", "configs.codeqwen1_5_7b",
+                "configs.internlm2_20b", "configs.olmoe_1b_7b",
+                "configs.qwen2_5_14b", "configs.qwen2_vl_7b",
+                "configs.whisper_small"):
         assert f"repro_torch.{mod}" in mods
     for family in ("ckpt_delta", "flash_attention", "rglru", "rwkv6"):
         for part in ("", ".kernel", ".ops", ".ref"):
             assert f"repro_torch.kernels.{family}{part}" in mods
     benches = [str(p) for p in PORT_BENCHES]
     for name in ("ckpt", "kernels", "runtime", "proactive", "campaign",
-                 "recovery", "fleet", "replication"):
+                 "recovery", "fleet", "replication", "serve"):
         assert any(p.endswith(f"torch_bench_{name}.py") for p in benches)
     assert any(p.endswith("torch_run.py") for p in benches)
     code = ("import importlib, importlib.util, sys\n"
@@ -97,3 +101,19 @@ def test_trainer_without_device_needs_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResilientTrainer(get_smoke_config("yi-6b"), tcfg,
                          EventStream(schedule=constant_rate(500.0)))
+
+
+def test_serve_launcher_defaults_to_cuda(monkeypatch):
+    """``launch.serve``'s ``--device`` defaults to cuda."""
+    from repro_torch.launch import serve
+
+    asked = []
+
+    def resolve(device):
+        asked.append(device)
+        raise SystemExit(0)
+
+    monkeypatch.setattr("repro_torch.utils.trees.resolve_device", resolve)
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "yi-6b", "--local"])
+    assert asked == ["cuda"]

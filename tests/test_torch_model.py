@@ -83,7 +83,8 @@ def test_logits_and_loss_match_jax(seq, path):
         jparams, jcfg, {k: jnp.asarray(v) for k, v in b.items()})
     tparams = _to_port(_np(jparams))
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    tlogits = zoo.forward_logits(tparams, tcfg, tb)
+    tlogits, taux, _ = zoo.forward_logits(tparams, tcfg, tb)
+    assert float(taux) == 0.0
     np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits),
                                rtol=1e-5, atol=2e-5)
     jloss, _ = jzoo.make_loss_fn(jcfg)(jparams, {k: jnp.asarray(v)
