@@ -198,25 +198,24 @@ def parity_check(horizon: int = 900, device: Any = None) -> dict:
     return out
 
 
-def trace_ticks(n: int, ticks: int = 256, device: Any = None) -> dict:
-    """Profile ``ticks`` torch-engine ticks of the throughput scenario at
-    ``n`` lanes, after 256 warm ticks (so the window starts 44 ticks
-    before the first crash and holds one crash-event pass a tick from
-    there).  Device figures are None off a CUDA device."""
+def profile_advance(camp: DeviceCampaign, advance) -> dict:
+    """Run ``advance()`` (which moves ``camp`` on by some ticks) under
+    ``torch.profiler``: host wall per tick, device kernel time per tick,
+    the device's busy share, kernel launches per tick, and the ops with
+    the most device time.  Device figures are None off a CUDA device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    camp = DeviceCampaign(_thr_cost(), _thr_lanes(n, THR_TICKS),
-                          record_history=False, device=device)
-    camp.run(n_ticks=256)
     cuda = camp.device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    k0 = camp._step_idx
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        camp.run(n_ticks=ticks)
+        advance()
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    ticks = camp._step_idx - k0
     events = prof.key_averages()
 
     def dev_us(e) -> float:
@@ -227,13 +226,24 @@ def trace_ticks(n: int, ticks: int = 256, device: Any = None) -> dict:
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=dev_us if cuda else (lambda e: e.self_cpu_time_total),
                  reverse=True)
-    out = {"lanes": n, "ticks": ticks,
-           "wall_ms_per_tick": wall * 1e3 / ticks,
-           "device_ms_per_tick": busy_ms / ticks if cuda else None,
-           "device_busy_share": busy_ms / (wall * 1e3) if cuda else None,
-           "launches_per_tick": sum(e.count for e in events
-                                    if e.key == "cudaLaunchKernel") / ticks,
-           "top_ops": [(e.key, e.count // ticks) for e in ops[:4]]}
+    return {"lanes": camp.n_lanes, "ticks": ticks,
+            "wall_ms_per_tick": wall * 1e3 / ticks,
+            "device_ms_per_tick": busy_ms / ticks if cuda else None,
+            "device_busy_share": busy_ms / (wall * 1e3) if cuda else None,
+            "launches_per_tick": sum(e.count for e in events
+                                     if e.key == "cudaLaunchKernel") / ticks,
+            "top_ops": [(e.key, e.count // ticks) for e in ops[:4]]}
+
+
+def trace_ticks(n: int, ticks: int = 256, device: Any = None) -> dict:
+    """Profile ``ticks`` torch-engine ticks of the throughput scenario at
+    ``n`` lanes, after 256 warm ticks (so the window starts 44 ticks
+    before the first crash and holds one crash-event pass a tick from
+    there)."""
+    camp = DeviceCampaign(_thr_cost(), _thr_lanes(n, THR_TICKS),
+                          record_history=False, device=device)
+    camp.run(n_ticks=256)
+    out = profile_advance(camp, lambda: camp.run(n_ticks=ticks))
     print(f"  trace {n} lanes: {out['wall_ms_per_tick']:.3f} ms a tick on "
           f"the host clock (profiled), device "
           f"{out['device_ms_per_tick']} ms a tick, busy share "
@@ -323,6 +333,10 @@ def device_section(smoke: bool = False, device: Any = None) -> dict:
         parity = parity_check(device=device)
         sweep = bench_sweep(device=device)
     return {"throughput": throughput, "parity": parity, "sweep": sweep}
+
+
+def main(device: Any = None) -> dict:
+    return device_section(smoke=False, device=device)
 
 
 if __name__ == "__main__":

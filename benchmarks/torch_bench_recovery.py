@@ -1,10 +1,20 @@
 """E4 on the PyTorch port: recovery time and latency vs CI at fixed load,
 through the scalar ``StreamSimulator`` and as lanes of one campaign on the
 torch lane engine, emitted as the ``bench_sim/3`` artifact — the twin of
-``bench_recovery.smoke`` and its artifact validators.
+``bench_recovery.py`` and its artifact validators.
 
-    PYTHONPATH=src python benchmarks/torch_bench_recovery.py --out DIR \\
-        [--device cpu]
+    PYTHONPATH=src python benchmarks/torch_bench_recovery.py [--smoke] \\
+        [--out PATH] [--device cpu]
+
+``bench_recovery_vs_ci(out)`` is the full E4: the scalar sweep over eight
+CIs, the same sweep as campaign lanes (rows equal to the scalar oracle),
+and the 432-lane scenario grid (CI x mechanism x failure kind x workload,
+lane-level early exit) timed over three runs, with the full E10
+head-to-head (``torch_bench_proactive.bench_proactive``) and the full E12
+section (``torch_bench_campaign.device_section``) embedded — passed in,
+or computed here — written to ``out`` (default ``BENCH_sim_torch.json``)
+after its validators pass.  Latencies and recoveries are simulated time;
+only the wall-clock figures depend on the machine.
 
 ``smoke(tmpdir)`` runs a reduced E4 grid (CIs 30 and 120) through both
 engines (their rows must agree exactly), a 4-lane early-exit grid, and
@@ -42,7 +52,9 @@ from typing import Any, Optional
 
 import numpy as np
 
-from repro_torch.data.stream import constant_rate, dense_rates
+from repro_torch.config import CheckpointPlan
+from repro_torch.core import young_daly_interval
+from repro_torch.data.stream import constant_rate, dense_rates, diurnal_rate
 from repro_torch.ft.failures import FailureInjector
 from repro_torch.sim import (LaneSpec, SimCostModel, StreamSimulator,
                              make_campaign)
@@ -50,6 +62,8 @@ from repro_torch.sim import (LaneSpec, SimCostModel, StreamSimulator,
 E4_CIS = (10, 20, 30, 60, 90, 120, 180, 240)
 E4_RATE = 3000.0
 E4_HORIZON_S = 5000.0          # post-injection window of the scalar sweep
+GRID_HORIZON = 2200            # ticks per grid lane (recovery completes well
+                               # inside this for every grid scenario family)
 
 SIM_SCHEMA = "bench_sim/3"
 SIM_SCHEMA_KEYS = ("schema", "e4", "grid", "proactive", "device",
@@ -118,6 +132,83 @@ def batched_e4(cost: SimCostModel, cis=E4_CIS,
         rows.append((lane.tag["e4_ci"], lat_pre,
                      rec if rec is not None else float("nan")))
     return rows, wall
+
+
+# ---------------------------------------------------------------------------
+# the 10x scenario grid (throughput measurement)
+# ---------------------------------------------------------------------------
+
+GRID_PLANS = (
+    ("full-sync", None),
+    ("full-async", CheckpointPlan(sync=False)),
+    ("incr8-async", CheckpointPlan(mode="incremental", full_every=8,
+                                   sync=False)),
+    ("incr8-async-mlr", CheckpointPlan(mode="incremental", full_every=8,
+                                       sync=False,
+                                       levels=("memory", "local", "remote"),
+                                       local_every=1, remote_every=8)),
+)
+GRID_KINDS = ("task", "node", "cluster")
+
+
+def grid_lanes(cost: SimCostModel, n_cis: int = 18,
+               horizon: int = GRID_HORIZON) -> list[LaneSpec]:
+    """CI grid x mechanism x failure kind x workload — every lane one chaos
+    scenario with a worst-case injection."""
+    workloads = (("const", constant_rate(E4_RATE)),
+                 ("diurnal", diurnal_rate(base=0.8 * E4_RATE, amplitude=0.4,
+                                          period=7200.0, seed=7)))
+    # one dense λ array per workload, shared by every lane that replays it
+    rates = {w: dense_rates(0.0, horizon, schedule=s) for w, s in workloads}
+    lanes = []
+    for ci in np.geomspace(10.0, 240.0, n_cis):
+        t = _worst_case(float(ci), cost)
+        for plan_name, plan in GRID_PLANS:
+            for kind in GRID_KINDS:
+                for wname, _sched in workloads:
+                    lanes.append(LaneSpec(
+                        rates=rates[wname],
+                        ci_s=float(ci), plan=plan, failures=((t, kind),),
+                        tag={"plan": plan_name, "kind": kind,
+                             "workload": wname}))
+    return lanes
+
+
+def grid_campaign(cost: SimCostModel, lanes, engine: str = "device",
+                  device: Any = None):
+    """One run of the grid's campaign (no history, lane-level early exit:
+    recovered lanes are compacted out of the arrays)."""
+    return make_campaign(cost, lanes, engine=engine,
+                         device=device if engine == "device" else None,
+                         record_history=False, early_exit=True).run()
+
+
+def bench_grid(cost: SimCostModel, repeats: int = 3,
+               device: Any = None) -> dict:
+    """Throughput grid with lane-level early exit, the median wall of
+    ``repeats`` runs (the compaction counters are part of the artifact)."""
+    lanes = grid_lanes(cost)
+    walls = []
+    camp = None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        camp = grid_campaign(cost, lanes, device=device)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    recovered = sum(1 for r in camp.recoveries if r)
+    return {
+        "lanes": len(lanes),
+        "lane_ticks": int(camp.ticks_run),
+        "wall_s": wall,
+        "lane_ticks_per_s": camp.ticks_run / wall,
+        "recovered_fraction": recovered / len(lanes),
+        "compactions": int(camp.compactions),
+        "lanes_compacted": int(camp.lanes_compacted),
+        "ci_grid": [10.0, 240.0, 18],
+        "plans": [n for n, _ in GRID_PLANS],
+        "kinds": list(GRID_KINDS),
+        "workloads": ["const", "diurnal"],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +363,8 @@ def _sibling(name: str):
                             name + ".py")
         spec = importlib.util.spec_from_file_location(name, path)
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
         sys.modules[name] = mod
+        spec.loader.exec_module(mod)
     return sys.modules[name]
 
 
@@ -325,16 +416,63 @@ def smoke(tmpdir: str, proactive: Optional[dict] = None,
     return art
 
 
+def bench_recovery_vs_ci(out: str = "BENCH_sim_torch.json",
+                         proactive: Optional[dict] = None,
+                         device_sec: Optional[dict] = None,
+                         device: Any = None) -> dict:
+    """The full E4 (see the module docstring); returns the artifact.
+    ``proactive`` is the E10 section, ``device_sec`` the E12 section —
+    ``torch_run.py`` passes them through so each runs once."""
+    if proactive is None:
+        proactive = _sibling("torch_bench_proactive").bench_proactive(
+            device=device)
+    if device_sec is None:
+        device_sec = _sibling("torch_bench_campaign").device_section(
+            device=device)
+    cost = _e4_cost()
+    print("\n=== Recovery & latency vs CI (constant 3000 ev/s, worst-case "
+          "failure) ===")
+    scalar_rows, scalar_wall, scalar_ticks = scalar_e4(cost)
+    batched_rows, batched_wall = batched_e4(cost, device=device)
+    print(f"{'CI (s)':>8s} {'avg latency (ms)':>18s} {'recovery (s)':>14s} "
+          f"{'batched rec (s)':>16s}")
+    for (ci, lat, rec), (_, _, recb) in zip(scalar_rows, batched_rows):
+        print(f"{int(ci):8d} {lat:18.0f} {rec:14.0f} {recb:16.0f}")
+    yd = young_daly_interval(cost.ckpt_duration_s, mtbf_s=4 * 3600.0)
+    print(f"Young/Daly optimum for MTBF=4h, delta={cost.ckpt_duration_s}s: "
+          f"{yd:.0f}s (static, workload-blind — the gap Khaos closes)")
+
+    grid = bench_grid(cost, device=device)
+    print(f"scalar 8-point sweep: {scalar_wall:.2f}s; {grid['lanes']}-lane "
+          f"campaign grid: {grid['wall_s']:.2f}s "
+          f"({grid['recovered_fraction']*100:.0f}% of lanes recovered)")
+    art = build_sim_artifact(scalar_rows, scalar_wall, scalar_ticks,
+                             batched_rows, batched_wall, grid, proactive,
+                             device_sec)
+    return emit_sim_artifact(out, art)
+
+
+def main(out: str = "BENCH_sim_torch.json", proactive: Optional[dict] = None,
+         device_sec: Optional[dict] = None, device: Any = None) -> dict:
+    return bench_recovery_vs_ci(out, proactive=proactive,
+                                device_sec=device_sec, device=device)
+
+
 if __name__ == "__main__":
     import tempfile
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device of the lane engine (default: cuda)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced drill (default: the full E4)")
     ap.add_argument("--out", default=None,
-                    help="directory of BENCH_sim.json (default: a "
-                         "temporary directory)")
+                    help="the artifact's path (default BENCH_sim_torch.json)"
+                         "; with --smoke the directory of BENCH_sim.json "
+                         "(default: a temporary directory)")
     args = ap.parse_args()
-    if args.out:
+    if not args.smoke:
+        main(args.out or "BENCH_sim_torch.json", device=args.device)
+    elif args.out:
         smoke(args.out, device=args.device)
     else:
         with tempfile.TemporaryDirectory() as tmp:

@@ -358,9 +358,13 @@ def smoke(root: Optional[str] = None, device: Any = None) -> dict:
     return out
 
 
+def main(device: Any = None) -> dict:
+    print("\n== replication recovery drill ==")
+    return smoke(device=device)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device of the states (default: cuda)")
-    print("\n== replication recovery drill ==")
-    smoke(device=ap.parse_args().device)
+    main(device=ap.parse_args().device)

@@ -1,10 +1,37 @@
 """Benchmark runner of the PyTorch port — the twin of ``run.py``.
 
-    PYTHONPATH=src python benchmarks/torch_run.py --smoke [--device cpu]
+    PYTHONPATH=src python benchmarks/torch_run.py [--quick | --smoke] \\
+        [--device cpu]
 
-``--smoke`` runs the seven drill twins of ``run.py --smoke``, in its order,
-each on the port (the lane engine and the states on the CUDA device
-unless ``--device`` names another):
+Without ``--smoke`` it runs ``run.py``'s full mode, section by section in
+its order, each on the port (the lane engines and the states on the CUDA
+device unless ``--device`` names another):
+
+  E1   ``torch_bench_tables.bench_iot_vehicles``: Table II (IoT-Vehicles
+       analogue), Khaos against the static CIs over a simulated day;
+  E2   ``torch_bench_tables.bench_ysb``: Table III (YSB analogue);
+       ``--quick`` gives E1/E2 one repetition, else the median of three;
+  E10  ``torch_bench_proactive.main``: the proactive vs reactive
+       head-to-head on one campaign;
+  E12  ``torch_bench_campaign.main``: the torch lane engine against the
+       NumPy lanes (throughput, parity, the exhaustive sweep);
+  E4   ``torch_bench_recovery.main``: recovery and latency vs CI through
+       the scalar oracle and the lanes, the 432-lane grid, and the
+       ``bench_sim/3`` artifact embedding E10 and E12
+       (``BENCH_sim_torch.json``);
+  the replication drill (``torch_bench_replication.main``);
+  E11  ``torch_bench_fleet.main``: the 8-job fleet (``BENCH_fleet_torch.json``);
+  E9   ``torch_bench_khaos_training.main``: Khaos on a training job;
+  E5   ``torch_bench_ckpt.main``: the checkpoint bench and its calibration
+       artifact (``BENCH_ckpt_torch.json``);
+  E6   ``torch_bench_kernels.main``: the kernel bench.
+
+E7 (``bench_dryrun.py``) is the one section not run: it waits for the
+port's ``launch/dryrun.py`` (ROADMAP §1 item 3); the runner says so in
+one line.  Artifacts land in the working directory.
+
+``--smoke`` runs the seven drill twins of ``run.py --smoke``, in its
+order:
 
   1. ``torch_bench_ckpt.smoke``: the E5 checkpoint bench on tiny states
      (device-placement delta encodes included, a micro trainer on an
@@ -29,9 +56,7 @@ unless ``--device`` names another):
      transfer admit, one firehose rejected), its ``bench_fleet/1``
      artifact validated.
 
-It exits with 1 on the first ``ValueError``/``AssertionError``.  The full
-mode of ``run.py`` is not twinned yet: E1/E2 (``bench_tables.py``),
-``bench_khaos_training.py`` and ``bench_dryrun.py`` have no port.
+Either mode exits with 1 on the first ``ValueError``/``AssertionError``.
 """
 from __future__ import annotations
 
@@ -41,7 +66,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -52,8 +77,9 @@ def _sibling(name: str):
         spec = importlib.util.spec_from_file_location(
             name, os.path.join(HERE, name + ".py"))
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        # registered before it runs: a dataclass looks its module up
         sys.modules[name] = mod
+        spec.loader.exec_module(mod)
     return sys.modules[name]
 
 
@@ -92,25 +118,66 @@ def smoke(tmpdir: str, device: Any = None,
     return out
 
 
-def main() -> None:
+#: the one section of ``run.py``'s full mode the port does not run yet
+E7_LINE = ("E7 (bench_dryrun.py, the dry run and roofline) is not run: it "
+           "waits for the port's launch/dryrun.py (ROADMAP §1 item 3)")
+
+
+def full(repeats: int = 3, device: Any = None) -> dict:
+    """``run.py``'s full mode, in its order, but E7 (see the module
+    docstring).  Returns each section's result and seconds."""
+    out: dict = {"seconds": {}}
+
+    def section(name: str, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["seconds"][name] = time.perf_counter() - t0
+        return out[name]
+
+    tables = _sibling("torch_bench_tables")
+    section("E1", lambda: tables.bench_iot_vehicles(repeats=repeats,
+                                                    device=device))
+    section("E2", lambda: tables.bench_ysb(repeats=repeats, device=device))
+    proactive = section("E10", lambda: _sibling(
+        "torch_bench_proactive").main(device=device))
+    device_sec = section("E12", lambda: _sibling(
+        "torch_bench_campaign").main(device=device))
+    section("E4", lambda: _sibling("torch_bench_recovery").main(
+        proactive=proactive, device_sec=device_sec, device=device))
+    section("replication", lambda: _sibling(
+        "torch_bench_replication").main(device=device))
+    section("E11", lambda: _sibling("torch_bench_fleet").main(device=device))
+    section("E9", lambda: _sibling("torch_bench_khaos_training").main(
+        device=device))
+    section("E5", lambda: _sibling("torch_bench_ckpt").main(device=device))
+    section("E6", lambda: _sibling("torch_bench_kernels").main(
+        ["--device", str(device or "cuda")]))
+    print(E7_LINE)
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="one repetition for E1/E2 (default: median of 3)")
     ap.add_argument("--smoke", action="store_true",
-                    help="the seven drill twins (the only mode ported)")
+                    help="the seven drill twins of run.py --smoke")
     ap.add_argument("--device", default=None,
-                    help="torch device of the drills (default: cuda)")
-    args = ap.parse_args()
-    if not args.smoke:
-        ap.error("only --smoke is ported: E1/E2, bench_khaos_training and "
-                 "bench_dryrun have no twins yet")
+                    help="torch device of the benches (default: cuda)")
+    args = ap.parse_args(argv)
     t0 = time.monotonic()
+    mode = "smoke" if args.smoke else "full run"
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            out = smoke(tmp, device=args.device)
+        if args.smoke:
+            with tempfile.TemporaryDirectory() as tmp:
+                out = smoke(tmp, device=args.device)
+        else:
+            out = full(repeats=1 if args.quick else 3, device=args.device)
     except (ValueError, AssertionError) as e:
-        print(f"SMOKE FAILED: {e}", file=sys.stderr)
+        print(f"{mode.upper()} FAILED: {e}", file=sys.stderr)
         sys.exit(1)
     secs = ", ".join(f"{k} {v:.1f}s" for k, v in out["seconds"].items())
-    print(f"smoke done in {time.monotonic() - t0:.0f}s ({secs})")
+    print(f"{mode} done in {time.monotonic() - t0:.0f}s ({secs})")
 
 
 if __name__ == "__main__":

@@ -43,12 +43,12 @@ Phases, in order (any failure exits non-zero, before the result line):
                the parity matrix (plan x crash kind x degradation x CI,
                60 lanes x 900 ticks) bit for bit against the NumPy lane
                engine (no divergent lane), lane-ticks/s of both engines at
-               1e3, 1e4 and 1e5 lanes x 1000 ticks (the bench's 2000 cut
-               to make room for the drills), a profiler trace of
-               the torch engine's ticks (device busy share, launches a
-               tick) at 1e3 and 1e5 lanes, and the exhaustive plan
-               sweep on the card against the top-3 NumPy replay (its
-               measured objective no worse).  Printed as one
+               1e3 and 1e4 lanes x 500 ticks (the bench's 1e5 lanes x
+               2000 ticks cut to make room for the drills and the paper
+               phase), a profiler trace of the torch engine's ticks
+               (device busy share, launches a tick) at 1e3 and 1e4 lanes,
+               and the exhaustive plan sweep on the card against the
+               top-3 NumPy replay (its measured objective no worse).  Printed as one
                ``{"campaign": {...}}`` line;
   drills       the seven drill twins of ``run.py --smoke`` on the card
                (``benchmarks/torch_run.py``: the checkpoint bench on tiny
@@ -59,7 +59,9 @@ Phases, in order (any failure exits non-zero, before the result line):
                in full (``benchmarks/torch_bench_fleet.py``: 8 jobs and a
                rejected firehose under one ``FleetSupervisor``) on the
                torch lane engine with its whole validator, wall-clock gate
-               included, and once more on the NumPy lanes as the oracle
+               included (each wall-clock from one build, the bench's
+               minimum over three cut for the paper phase), and once more
+               on the NumPy lanes as the oracle
                (every key but ``wallclock`` equal, floats bit for bit; the
                NumPy wall-clock ratio printed, not gated); then
                ``card_drill`` (``benchmarks/torch_bench_replication.py``):
@@ -70,6 +72,33 @@ Phases, in order (any failure exits non-zero, before the result line):
                (#1), host 2 killed, the degraded partial restore (#3)
                checked BIT-EQUAL with fewer bytes pulled than the full
                holds.  Printed as one ``{"drills": {...}}`` line;
+  paper        the paper's experiments, each on the torch lane engine
+               and held to the NumPy lanes bit for bit: E1 and E2
+               (Tables II/III, ``benchmarks/torch_bench_tables.py``) at the
+               reference's ``--quick`` setting (one repeat, a full
+               simulated day) — Phase 2 (``make_khaos``) on both engines,
+               the (C, TR, L, R) grids and both fitted QoS models equal,
+               then the day with the device engine's controller; E9
+               (``torch_bench_khaos_training.py``) over its full day on
+               both engines (goodput, recoveries, checkpoints,
+               reconfigurations and decisions equal), one Phase-3 chunk
+               under ``torch.profiler`` (the device's busy share); E10's
+               head-to-head (``torch_bench_proactive.head_to_head``, period
+               14,400 s) on both engines, every key but the wall time
+               equal and the strict proactive win validated; the full E4
+               (``torch_bench_recovery.bench_recovery_vs_ci``: the scalar
+               sweep, its lanes, the 432-lane grid) with its
+               ``bench_sim/3`` artifact embedding this E10 and the
+               campaign phase's full-size section, validated, and the
+               grid per lane on both engines; the Phase-2 launcher
+               (``repro_torch.launch.profile_run``) on the card against
+               its ``--sequential`` path.  E9 runs in this process; the
+               other three parts run meanwhile in spawned worker
+               processes (each with its own CUDA context and launch
+               counts, summed here): every part is host-bound, and E9
+               alone outlasts them.  The nine kernels must launch 0 times
+               (these are simulations).  Printed as one
+               ``{"paper": {...}}`` line;
   serve        the serving path (``benchmarks/torch_bench_serve.py``)
                at published widths and full depth, one row per family:
                yi-6b, olmoe-1b-7b, recurrentgemma-2b (a 2048 prompt that
@@ -129,7 +158,8 @@ Phases, in order (any failure exits non-zero, before the result line):
 Kernel launch counts are set to 0 just before the kernel-bench path and
 read just after it (#7-#9), likewise around the drills path (#1 and #3
 must launch there; each row reports this path's count as
-``drills_launches``), around the serve path (reported, not gated),
+``drills_launches``), around the paper path (each row's
+``paper_launches``, all 0), around the serve path (reported, not gated),
 around the calibration path (#5/#6) and around the
 trainer path, from the lossless half to the int8 half (#1-#4).  The line
 before the last is ``{"kernels": [...]}``; the last line is
@@ -146,6 +176,7 @@ import os
 # large, differently sized buffers and must not fragment
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -163,9 +194,16 @@ BENCH = ROOT / "benchmarks" / "torch_bench_ckpt.py"
 KBENCH = ROOT / "benchmarks" / "torch_bench_kernels.py"
 #: the E12 engine bench of the campaign phase, and the ticks of its
 #: throughput lanes (the bench's THR_TICKS is 2000; halved to keep the
-#: script's time with the drills phase)
+#: script's time with the drills phase, halved again with the paper phase)
 CBENCH = ROOT / "benchmarks" / "torch_bench_campaign.py"
-THR_HORIZON = 1000
+THR_HORIZON = 500
+#: the throughput and trace lane counts: the 1e5-lane point (~25 s of the
+#: phase with its lane building) and the 1e5-lane trace (a 2000 x 1e5
+#: float64 rate matrix) were cut for the paper phase
+THR_LANE_COUNTS = (1_000, 10_000)
+#: fresh builds behind each E11 wall-clock of the drills phase (the
+#: bench's min over 3, ~60 s of the phase, cut for the paper phase)
+E11_REPS = 1
 #: the drills phase: the run.py --smoke twin, E11 and the card drill (the
 #: runner loads the other drill benches beside it)
 DRILL_BENCHES = (ROOT / "benchmarks" / "torch_run.py",
@@ -177,6 +215,14 @@ DRILL_BENCHES = (ROOT / "benchmarks" / "torch_run.py",
 DRILL_KERNELS = ("flat_lossless_encode", "lossless_decode")
 #: the serve phase: prefill, decode and StreamServer for every family
 SBENCH = ROOT / "benchmarks" / "torch_bench_serve.py"
+#: the paper phase: E1/E2 (with their shared harness), E9, E10 and E4
+PAPER_BENCHES = tuple(ROOT / "benchmarks" / f"torch_{n}.py" for n in (
+    "bench_tables", "bench_khaos_training", "bench_proactive",
+    "bench_recovery", "common"))
+#: the chunk of E9's Phase 3 (one optimization period, 300 ticks) that the
+#: profiler reads: the 216th of the day's 288 (18:00), when the paper
+#: phase's worker processes have ended and E9 has the card to itself
+E9_TRACE_CHUNK = 216
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -732,9 +778,9 @@ def campaign_phase(dev) -> dict:
     """The chaos-campaign path on the card's torch lane engine
     (``benchmarks/torch_bench_campaign.py``, the E12 twin): the parity
     matrix at horizon 900 against the NumPy engine, which must have no
-    divergent lane; lane-ticks/s of both engines at 1e3/1e4/1e5 lanes x
-    ``THR_HORIZON`` ticks; a profiler trace of the torch engine's ticks
-    at 1e3 and 1e5 lanes; the exhaustive plan sweep on the card against
+    divergent lane; lane-ticks/s of both engines at ``THR_LANE_COUNTS``
+    lanes x ``THR_HORIZON`` ticks; a profiler trace of the torch engine's ticks
+    at the same lane counts; the exhaustive plan sweep on the card against
     the top-3 NumPy replay.  The drills phase validates the
     section through the recovery drill's ``bench_sim/3`` artifact."""
     import torch
@@ -748,8 +794,10 @@ def campaign_phase(dev) -> dict:
     check(not parity["fma_contraction"] and parity["phase_matches_numpy"],
           f"device arithmetic differs from NumPy's: {parity}")
     check(parity["recoveries"] > 0, "the parity matrix recovered nothing")
-    throughput = cbench.bench_throughput(horizon=THR_HORIZON, device=dev)
-    out["trace"] = [cbench.trace_ticks(n, device=dev) for n in (1000, 100_000)]
+    throughput = cbench.bench_throughput(lane_counts=THR_LANE_COUNTS,
+                                         horizon=THR_HORIZON, device=dev)
+    out["trace"] = [cbench.trace_ticks(n, device=dev)
+                    for n in THR_LANE_COUNTS]
     sweep = cbench.bench_sweep(device=dev)
     section = {"throughput": throughput, "parity": parity, "sweep": sweep}
     out["engine_s"] = time.monotonic() - t0
@@ -789,11 +837,12 @@ def drills_phase(dev, section: dict) -> dict:
         out["grid"] = res["recovery"]["grid"]
         t0 = time.monotonic()
         art = fleet.bench_fleet(os.path.join(tmp, "BENCH_fleet_torch.json"),
-                                engine="device", device=dev)
+                                engine="device", device=dev, reps=E11_REPS)
         out["e11_device_s"] = time.monotonic() - t0
         t0 = time.monotonic()
         oracle = fleet.bench_fleet(os.path.join(tmp, "BENCH_fleet_np.json"),
-                                   engine="numpy", gate_wallclock=False)
+                                   engine="numpy", gate_wallclock=False,
+                                   reps=E11_REPS)
         out["e11_numpy_s"] = time.monotonic() - t0
     check(_canonical(art) == _canonical(oracle),
           "E11 on the torch lane engine differs from the NumPy lanes")
@@ -809,6 +858,257 @@ def drills_phase(dev, section: dict) -> dict:
     out["card_drill_s"] = time.monotonic() - t0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return out
+
+
+def _same(a, b) -> bool:
+    """Exact equality of two JSON-able results (a float's repr round-trips
+    its bits; NaN equals NaN)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def _same_arrays(a, b) -> bool:
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def _traced_chunk(camp, at: int, probe: dict) -> None:
+    """Wrap ``camp.run`` so that the ``at``-th advance (one chunk of
+    ``drive_campaign``) runs under ``torch.profiler``
+    (``torch_bench_campaign.profile_advance``); ``probe`` also gets the
+    host clock of the first advance and of the last return (the Phase-3
+    seconds)."""
+    run = camp.run
+    calls = [0]
+
+    def traced(n_ticks=None):
+        calls[0] += 1
+        probe.setdefault("first_advance", time.monotonic())
+        if calls[0] == at:
+            probe.update(_module(CBENCH).profile_advance(
+                camp, lambda: run(n_ticks)), chunk=at)
+        else:
+            run(n_ticks)
+        probe["last_return"] = time.monotonic()
+        return camp
+    camp.run = traced
+
+
+def _paper_tables(dev, out: dict) -> None:
+    """E1/E2 at the reference's ``--quick`` setting: the day with Phase 2
+    on the card (captured from inside the bench), then Phase 2 again on the
+    NumPy lanes; the grids and both fitted QoS models must be equal."""
+    tables, _, _, _, common = (_module(p) for p in PAPER_BENCHES)
+    secs = out["seconds"]
+    real_make_khaos = common.make_khaos
+    for key, bench in (("E1", tables.bench_iot_vehicles),
+                       ("E2", tables.bench_ysb)):
+        calls: list = []
+
+        def make_khaos(*a, **kw):
+            calls.append((a, kw, real_make_khaos(*a, **kw)))
+            return calls[-1][2]
+        common.make_khaos = make_khaos
+        try:
+            t0 = time.monotonic()
+            rows, err = bench(repeats=1, device=dev)
+            secs[key] = time.monotonic() - t0
+        finally:
+            common.make_khaos = real_make_khaos
+        check(len(calls) == 1 and calls[0][1]["engine"] == "device",
+              f"{key} ran Phase 2 {len(calls)} times, not once on the card")
+        (recording, cost, seed), _, (ctl_d, prof_d) = calls[0]
+        t0 = time.monotonic()
+        ctl_n, prof_n = real_make_khaos(recording, cost, seed,
+                                        engine="numpy")
+        secs[f"{key}_phase2_numpy"] = time.monotonic() - t0
+        for f in ("ci_values", "failure_rates", "latencies", "recoveries"):
+            check(_same_arrays(getattr(prof_d, f), getattr(prof_n, f)),
+                  f"{key} Phase 2: the {f} grid differs between the torch "
+                  f"lane engine and the NumPy lanes")
+        for m in ("m_l", "m_r"):
+            for f in ("_mu", "_sd", "_beta"):
+                check(_same_arrays(getattr(getattr(ctl_d, m), f),
+                                   getattr(getattr(ctl_n, m), f)),
+                      f"{key} Phase 2: {m}.{f} differs between the engines")
+        out[key] = {"rows": [dataclasses.asdict(r) for r in rows],
+                    "error_analysis": err,
+                    "recoveries_grid": prof_d.recoveries.tolist()}
+
+
+def _paper_e9(dev, out: dict) -> None:
+    """E9's day on both engines, equal; one Phase-3 chunk profiled."""
+    e9 = _module(PAPER_BENCHES[1])
+    secs = out["seconds"]
+    probe: dict = {}
+    t0 = time.monotonic()
+    e9_dev = e9.bench_khaos_training(
+        engine="device", device=dev,
+        on_campaign=lambda camp: _traced_chunk(camp, E9_TRACE_CHUNK, probe))
+    secs["E9_device"] = time.monotonic() - t0
+    secs["E9_phase3_device"] = probe["last_return"] - probe["first_advance"]
+    t0 = time.monotonic()
+    e9_np = e9.bench_khaos_training(engine="numpy")
+    secs["E9_numpy"] = time.monotonic() - t0
+    check(_same(e9_dev, e9_np),
+          f"E9 on the torch lane engine differs from the NumPy lanes: "
+          f"{e9_dev} vs {e9_np}")
+    check("device_busy_share" in probe,
+          f"E9's Phase 3 never reached chunk {E9_TRACE_CHUNK}")
+    out["E9"] = e9_dev
+    out["E9_trace"] = probe
+
+
+def _paper_e10_e4(dev, out: dict, section: dict) -> None:
+    """E10's head-to-head on both engines (equal but the wall time, the
+    strict proactive win validated), then the full E4 with its
+    ``bench_sim/3`` artifact embedding this E10 and ``section``, and the
+    grid per lane on both engines."""
+    import tempfile
+
+    _, _, pro, rec, _ = (_module(p) for p in PAPER_BENCHES)
+    secs = out["seconds"]
+    t0 = time.monotonic()
+    e10 = pro.head_to_head(device=dev)
+    secs["E10_device"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    e10_np = pro.head_to_head(engine="numpy")
+    secs["E10_numpy"] = time.monotonic() - t0
+    rec._validate_proactive(e10)
+    check(_same({k: v for k, v in e10.items() if k != "wall_s"},
+                {k: v for k, v in e10_np.items() if k != "wall_s"}),
+          "E10 on the torch lane engine differs from the NumPy lanes")
+    out["E10"] = e10
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        path = os.path.join(tmp, "BENCH_sim_torch.json")
+        art = rec.bench_recovery_vs_ci(path, proactive=e10,
+                                       device_sec=section, device=dev)
+        with open(path) as f:
+            rec.validate_sim_artifact(json.load(f))
+        secs["E4"] = time.monotonic() - t0
+    check(art["e4"]["recovery_s"] == art["e4"]["recovery_s_batched"] and
+          art["e4"]["latency_ms"] == art["e4"]["latency_ms_batched"],
+          f"E4: the lanes differ from the scalar oracle: {art['e4']}")
+    cost = rec._e4_cost()
+    lanes = rec.grid_lanes(cost)
+    t0 = time.monotonic()
+    g_dev = rec.grid_campaign(cost, lanes, device=dev)
+    grid_dev_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    g_np = rec.grid_campaign(cost, lanes, engine="numpy")
+    grid_np_s = time.monotonic() - t0
+    check(g_dev.recoveries == g_np.recoveries and
+          g_dev.ticks_run == g_np.ticks_run and
+          g_dev.compactions == g_np.compactions,
+          "E4's grid on the torch lane engine differs from the NumPy lanes")
+    out["E4"] = {"e4": art["e4"], "grid": art["grid"],
+                 "speedup": art["speedup"],
+                 "scalar_ticks_per_s": art["scalar_ticks_per_s"],
+                 "grid_lane_ticks_per_s": {
+                     "device": g_dev.ticks_run / grid_dev_s,
+                     "numpy": g_np.ticks_run / grid_np_s}}
+
+
+def _paper_profile_run(dev, out: dict) -> None:
+    """The Phase-2 launcher on the card against its ``--sequential`` path
+    (the JAX package's batched and sequential paths agree at these
+    defaults, so the sequential oracle is the comparison)."""
+    import tempfile
+
+    from repro_torch.launch import profile_run
+    secs = out["seconds"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        got = profile_run.main(["--device", str(dev), "--out",
+                                os.path.join(tmp, "device.json")])
+        secs["profile_run_device"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        want = profile_run.main(["--sequential", "--out",
+                                 os.path.join(tmp, "sequential.json")])
+        secs["profile_run_sequential"] = time.monotonic() - t0
+        with open(os.path.join(tmp, "device.json")) as f:
+            on_disk = json.load(f)
+    check(_same(got, want) and _same(on_disk, want),
+          "launch/profile_run.py on the card differs from --sequential")
+    out["profile_run"] = {"compared_with": "sequential",
+                          "m_l_pct_error": got["m_l_pct_error"],
+                          "m_r_pct_error": got["m_r_pct_error"]}
+
+
+def _kernel_families() -> tuple:
+    from repro_torch.kernels import flash_attention, rglru, rwkv6
+    from repro_torch.kernels.ckpt_delta import ops
+    return ops, flash_attention, rglru, rwkv6
+
+
+def _paper_worker(part: str, device: str, section: dict) -> dict:
+    """One part of the paper phase in a spawned worker process (its own
+    CUDA context): ``{"out": ..., "launches": ...}``, or ``{"error": ...}``
+    for the parent to raise (an exception of this script's own classes
+    would not unpickle there)."""
+    try:
+        if str(SRC) not in sys.path:
+            sys.path.insert(0, str(SRC))
+        import torch
+        dev = torch.device(device)
+        families = _kernel_families()
+        for f in families:
+            f.reset_launch_counts()
+        out: dict = {"seconds": {}}
+        if part == "tables":
+            _paper_tables(dev, out)
+        elif part == "e10_e4":
+            _paper_e10_e4(dev, out, section)
+        else:
+            _paper_profile_run(dev, out)
+        launches: dict = {}
+        for f in families:
+            launches.update(f.launch_counts())
+        return {"out": out, "launches": launches}
+    except Exception as e:   # noqa: BLE001 — reported to the parent
+        return {"error": f"{part}: {type(e).__name__}: {e}"}
+
+
+def paper_phase(dev, section: dict) -> dict:
+    """The paper's experiments on the card's torch lane engine, each held
+    to the NumPy lanes bit for bit: E1/E2 (Tables II/III) at the
+    reference's ``--quick`` setting, E9's day, E10's head-to-head, the full
+    E4 (its ``bench_sim/3`` artifact embedding this E10 and the campaign
+    phase's full-size ``section``) and the Phase-2 launcher
+    ``launch/profile_run.py`` against its ``--sequential`` path.  E9 runs
+    here; the other three parts (E1/E2, E10 then E4, the launcher) run at
+    the same time in spawned worker processes, each with its own CUDA
+    context: every part is host-bound, and E9 alone outlasts the others.
+    Their kernel launches are returned under ``worker_launches``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    out: dict = {"seconds": {}, "worker_launches": {}}
+    parts = ("tables", "e10_e4", "profile_run")
+    with ProcessPoolExecutor(
+            max_workers=len(parts),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_paper_worker, part, str(dev), section)
+                   for part in parts]
+        _paper_e9(dev, out)
+        results = [f.result() for f in futures]
+    for res in results:
+        check("error" not in res, res.get("error", ""))
+        part_out = res["out"]
+        out["seconds"].update(part_out.pop("seconds"))
+        out.update(part_out)
+        for name, n in res["launches"].items():
+            out["worker_launches"][name] = \
+                out["worker_launches"].get(name, 0) + n
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -854,8 +1154,9 @@ def _module(path: Path):
     if path.stem not in sys.modules:
         spec = importlib.util.spec_from_file_location(path.stem, path)
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        # registered before it runs: a dataclass looks its module up
         sys.modules[path.stem] = mod
+        spec.loader.exec_module(mod)
     return sys.modules[path.stem]
 
 
@@ -1272,11 +1573,12 @@ def khaos_phases(run: TrainerRun, cal: dict, dev) -> dict:
 def main() -> int:
     if not (SRC / "repro_torch").is_dir() or not all(
             p.is_file() for p in (BENCH, KBENCH, CBENCH, SBENCH,
-                                  *DRILL_BENCHES)):
+                                  *DRILL_BENCHES, *PAPER_BENCHES)):
         print("chip_smoke.py needs the repro_torch package under src/ and "
-              "benchmarks/torch_run.py and torch_bench_{ckpt,kernels,"
-              "campaign,fleet,replication,runtime,proactive,recovery,"
-              "serve}.py beside it", file=sys.stderr)
+              "benchmarks/torch_run.py, torch_common.py and torch_bench_"
+              "{ckpt,kernels,campaign,fleet,replication,runtime,proactive,"
+              "recovery,serve,tables,khaos_training}.py beside it",
+              file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1297,9 +1599,8 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the TF32 switches off)
     from repro_torch.config import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, rglru, rwkv6
-    from repro_torch.kernels.ckpt_delta import ops
-    families = (ops, flash_attention, rglru, rwkv6)
+    families = _kernel_families()
+    ops = families[0]
 
     t0 = time.monotonic()
     for name, (path, secs) in build_all().items():
@@ -1356,6 +1657,46 @@ def main() -> int:
     for name in DRILL_KERNELS:
         check(drill_launches[name] > 0,
               f"{name} was not launched on the drills path")
+
+    # -- paper path: E1/E2, E9, E10, E4 and the Phase-2 launcher ---------
+    for f in families:
+        f.reset_launch_counts()
+    t0 = time.monotonic()
+    paper = paper_phase(dev, campaign["section"])
+    paper_launches: dict = {}
+    for f in families:
+        paper_launches.update(f.launch_counts())
+    for name, n in paper["worker_launches"].items():
+        paper_launches[name] += n
+    paper["phase_s"] = time.monotonic() - t0
+    paper["launches"] = paper_launches
+    tr = paper["E9_trace"]
+    for key in ("E1", "E2"):
+        log(f"{key}: " + "; ".join(
+            f"{r['name']} latency {r['avg_latency_ms']:.0f} ms, violations "
+            f"{100 * r['lat_violation_frac']:.2f} %, recovery "
+            f"{r['total_recovery_s']:.0f} s (violation "
+            f"{r['recovery_violation_s']:.0f} s), reconfigs "
+            f"{r['reconfigurations']}" for r in paper[key]["rows"])
+            + f"; error analysis {paper[key]['error_analysis']} "
+            f"(simulated seconds)")
+    log(f"E9: {paper['E9']['results']} (goodput, recovery violation s); "
+        f"ckpts {paper['E9']['ckpts']}; decisions "
+        f"{paper['E9']['decisions_by_kind']}; Phase 3 chunk "
+        f"{tr['chunk']} ({tr['ticks']} ticks, {tr['lanes']} lanes): "
+        f"{tr['wall_ms_per_tick']:.3f} ms a tick on the host clock, "
+        f"device {tr['device_ms_per_tick']:.4f} ms a tick, busy share "
+        f"{tr['device_busy_share']:.4f}, {tr['launches_per_tick']:.1f} "
+        f"launches a tick")
+    log(f"E10: qos violation s {paper['E10']['qos_violation_s']}, lead "
+        f"{paper['E10']['lead_s']:.0f} s; E4 grid lane-ticks/s "
+        f"{paper['E4']['grid_lane_ticks_per_s']} (not gated)")
+    log(f"paper phase: {paper['phase_s']:.1f} s, parts "
+        f"{ {k: round(v, 2) for k, v in paper['seconds'].items()} }; "
+        f"launches of the nine kernels {paper_launches}; card {smi}")
+    print(json.dumps({"paper": paper}))
+    check(not any(paper_launches.values()),
+          f"kernels launched on the paper path: {paper_launches}")
 
     # -- serving path: prefill, decode, StreamServer, every family --------
     for f in families:
@@ -1469,6 +1810,7 @@ def main() -> int:
             rows.append({"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, **r, "path": "kernel bench",
                          "drills_launches": drill_launches[name],
+                         "paper_launches": paper_launches[name],
                          "serve_launches": serve_launches[name]})
             continue
         r = results[name]
@@ -1482,6 +1824,7 @@ def main() -> int:
                      "mismatches": r["mismatches"],
                      "elements": r["elements"],
                      "drills_launches": drill_launches[name],
+                     "paper_launches": paper_launches[name],
                      "serve_launches": serve_launches[name],
                      "path": ("calibration" if name in CALIBRATION_KERNELS
                               else "trainer")})

@@ -35,7 +35,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     for mod in ("sim.batched", "sim.device", "core.profiler",
                 "core.ci_optimizer", "core.controller", "fleet",
                 "fleet.registry", "fleet.admission", "fleet.supervisor",
-                "runtime.server", "launch.serve", "configs.codeqwen1_5_7b",
+                "runtime.server", "launch.serve", "launch.profile_run",
+                "utils.timing", "configs.codeqwen1_5_7b",
                 "configs.internlm2_20b", "configs.olmoe_1b_7b",
                 "configs.qwen2_5_14b", "configs.qwen2_vl_7b",
                 "configs.whisper_small"):
@@ -45,9 +46,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             assert f"repro_torch.kernels.{family}{part}" in mods
     benches = [str(p) for p in PORT_BENCHES]
     for name in ("ckpt", "kernels", "runtime", "proactive", "campaign",
-                 "recovery", "fleet", "replication", "serve"):
+                 "recovery", "fleet", "replication", "serve", "tables",
+                 "khaos_training"):
         assert any(p.endswith(f"torch_bench_{name}.py") for p in benches)
     assert any(p.endswith("torch_run.py") for p in benches)
+    assert any(p.endswith("torch_common.py") for p in benches)
     code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
