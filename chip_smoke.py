@@ -127,6 +127,23 @@ Phases, in order (any failure exits non-zero, before the result line):
                the reference model calls none).  Everything it allocated
                is freed before the calibration.  Printed as one
                ``{"serve": {...}}`` line;
+  prodstep     the train step as the reference's production launcher
+               builds it, on a (1, 1) ("data", "model") ``DeviceMesh`` of
+               the card (a world-size-1 nccl group over an in-process
+               ``HashStore``): ``ShardingRules`` and their annotator,
+               ``accum`` = the global batch over the data-parallel size,
+               capped at 2, ``state_specs`` and their placements; yi-6b
+               widths, 2 layers, float32, batch 4 x 1024, ``sgd``, under
+               ``torch.use_deterministic_algorithms(True)``.  Remat
+               "full" and "minimal" give params after one step bit-equal
+               to "none" (each policy's memory kept for the backward
+               pass and step peak logged); 2 microbatches against the
+               one batch: loss and grad_norm within rtol 1e-5, params
+               within 1e-4 x lr x max|g| plus one f32 ulp of the param;
+               one real leaf of each placement kind round-trips
+               ``distribute_tensor`` bit-equal; the step's median seconds.
+               The nine kernels must launch 0 times.  Freed after.  One
+               ``{"prodstep": {...}}`` line;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -160,7 +177,8 @@ read just after it (#7-#9), likewise around the drills path (#1 and #3
 must launch there; each row reports this path's count as
 ``drills_launches``), around the paper path (each row's
 ``paper_launches``, all 0), around the serve path (reported, not gated),
-around the calibration path (#5/#6) and around the
+around the prodstep path (``prodstep_launches``, all 0), around the
+calibration path (#5/#6) and around the
 trainer path, from the lossless half to the int8 half (#1-#4).  The line
 before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -175,8 +193,12 @@ import os
 # set before torch initialises CUDA: the trainer phase holds ~60 GB of
 # large, differently sized buffers and must not fragment
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# set before cuBLAS starts: the prodstep phase runs under
+# torch.use_deterministic_algorithms(True), which needs a fixed workspace
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -223,6 +245,14 @@ PAPER_BENCHES = tuple(ROOT / "benchmarks" / f"torch_{n}.py" for n in (
 #: profiler reads: the 216th of the day's 288 (18:00), when the paper
 #: phase's worker processes have ended and E9 has the card to itself
 E9_TRACE_CHUNK = 216
+#: the prodstep phase: yi-6b widths, 2 layers, float32, batch x seq, the
+#: accum cap, sgd's learning rate, the accum gate on the params (a share
+#: of lr x max|g|, the largest update) and the timed steps
+PROD_BATCH, PROD_SEQ = 4, 1024
+PROD_ACCUM_CAP = 2
+PROD_LR = 1.0
+PROD_PARAM_TOL = 1e-4
+PROD_TIMED = 3
 
 GROUP = 1024
 FLAT_ELEMENTS = 2_611_015_680      # packed 2-layer yi-6b-width train state
@@ -1128,6 +1158,213 @@ def serve_phase(dev) -> dict:
     return out
 
 
+def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
+                   seq: int = PROD_SEQ) -> dict:
+    """The train step as the reference's production launcher builds it,
+    on a (1, 1) ("data", "model") ``DeviceMesh`` of the card (a
+    world-size-1 process group over an in-process ``HashStore``): the
+    rules' annotator, ``accum`` from the shape's global batch over the
+    data-parallel size (capped at ``PROD_ACCUM_CAP``), ``state_specs``
+    and their placements.  yi-6b widths with 2 layers in float32,
+    ``sgd``, under ``torch.use_deterministic_algorithms(True)``:
+
+      (a) remat "full" and "minimal" give params after one step
+          bit-equal to "none" (logged for each policy: the device memory
+          its forward keeps for the backward pass, and its step's peak
+          above the memory held before the step);
+      (b) ``accum`` microbatches against one batch: loss and grad_norm
+          within rtol 1e-5, params within ``PROD_PARAM_TOL`` x lr x
+          max|g| plus one float32 ulp of the param (the update's
+          rounding);
+      (c) every leaf of ``state_specs`` gets placements, and one real
+          leaf of each placement kind round-trips ``distribute_tensor``
+          -> ``full_tensor`` bit-equal.
+
+    Then the step's seconds (median of ``PROD_TIMED`` steps).  Everything
+    it allocated is freed after.  ``cfg``/``batch``/``seq`` shrink it for
+    a CPU rehearsal (gloo in place of nccl)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.config import (OptimizerConfig, ShapeConfig,
+                                    ShardingConfig, replace)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import zoo
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.utils.trees import (tree_flatten_with_names,
+                                         tree_leaves, tree_structure,
+                                         tree_unflatten)
+
+    kind = torch.device(dev).type
+    cuda = kind == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cfg is None:
+        cfg = replace(get_config("yi-6b"), num_layers=2)
+    cfg = replace(cfg, dtype="float32", remat_policy="minimal")
+    shape = ShapeConfig("prodstep", "train", seq, batch)
+    out: dict = {"arch": cfg.name, "layers": cfg.num_layers,
+                 "params": cfg.param_count(), "batch": batch, "seq": seq,
+                 "dtype": cfg.dtype}
+    t_phase = time.monotonic()
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    was_det = torch.are_deterministic_algorithms_enabled()
+    try:
+        if cuda:
+            index = torch.device(dev).index
+            torch.cuda.set_device(torch.cuda.current_device()
+                                  if index is None else index)
+        mesh = make_test_mesh(1, 1, device_type=kind)
+        rules = ShardingRules(cfg, mesh, ShardingConfig())
+        ann = rules.annotator()
+        accum = min(PROD_ACCUM_CAP,
+                    max(1, shape.global_batch // rules.dp_size))
+        ocfg = OptimizerConfig(name="sgd", lr=PROD_LR, warmup_steps=1,
+                               schedule="constant")
+        opt = make_optimizer(ocfg)
+        out.update(mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   dp_size=rules.dp_size, accum=accum, lr=PROD_LR)
+
+        # (c) placements of every state leaf
+        specs = zoo.state_specs(cfg, opt)
+        shard = dict(tree_flatten_with_names(rules.state_shardings(specs)))
+        names = [n for n, _ in tree_flatten_with_names(specs)]
+        check(sorted(shard) == sorted(names)
+              and all(len(s.placements) == 2 for s in shard.values()),
+              "prodstep: a state leaf without placements")
+
+        gen = torch.Generator(device=dev).manual_seed(21)
+        state = zoo.init_state(cfg, opt, gen, dev)
+        # step 1: past the warmup, whose learning rate at step 0 is 0
+        state["step"] = torch.ones((), dtype=torch.int32, device=dev)
+        real = dict(tree_flatten_with_names(state))
+        kinds: dict = {}
+        for n in names:
+            kinds.setdefault(tuple(map(str, shard[n].placements)), n)
+        for pl, n in kinds.items():
+            t = real[n]
+            back = distribute_tensor(t, mesh, shard[n].placements) \
+                .full_tensor()
+            check(back.dtype == t.dtype and torch.equal(back, t),
+                  f"prodstep: {n} under {pl} did not round-trip")
+        out["placement_kinds"] = {" ".join(k): n for k, n in kinds.items()}
+        out["state_leaves"] = len(names)
+        del real
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=dev, dtype=torch.int32)
+        labels = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=dev, dtype=torch.int32)
+        data = {"tokens": tokens, "labels": labels}
+
+        torch.use_deterministic_algorithms(True)
+        # (a) remat: one step per policy from the same state
+        params: dict = {}
+        metrics: dict = {}
+        out.update(peak_gb={}, kept_gb={}, policy_s={})
+        for policy in ("none", "full", "minimal"):
+            pcfg = replace(cfg, remat_policy=policy)
+            if cuda:    # what the graph keeps for the backward pass
+                gc.collect()
+                sync()
+                before = torch.cuda.memory_allocated()
+                leaves = [p.detach().requires_grad_(True)
+                          for p in tree_leaves(state["params"])]
+                # the loss and its metrics hold the graph: drop both
+                loss, parts = zoo.make_loss_fn(pcfg, ann=ann)(
+                    tree_unflatten(tree_structure(state["params"]), leaves),
+                    data)
+                sync()
+                out["kept_gb"][policy] = (torch.cuda.memory_allocated()
+                                          - before) / 1e9
+                del loss, parts, leaves
+            step = zoo.make_train_step(pcfg, opt, ocfg, ann=ann)
+            gc.collect()
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            t0 = time.monotonic()
+            new, m = step(state, data)
+            sync()
+            out["policy_s"][policy] = time.monotonic() - t0
+            if cuda:
+                out["peak_gb"][policy] = (torch.cuda.max_memory_allocated()
+                                          - before) / 1e9
+            params[policy] = new["params"]
+            metrics[policy] = {k: float(v) for k, v in m.items()}
+            del new, m
+        ref = dict(tree_flatten_with_names(params["none"]))
+        for policy in ("full", "minimal"):
+            bad = [n for n, leaf in tree_flatten_with_names(params[policy])
+                   if not torch.equal(leaf, ref[n])]
+            check(not bad and metrics[policy]["loss"]
+                  == metrics["none"]["loss"],
+                  f"prodstep: remat {policy} differs from none at {bad[:4]}")
+        del params["full"], params["none"]
+        out["metrics"] = metrics["minimal"]
+
+        # (b) accum microbatches against the one batch of (a)
+        step = zoo.make_train_step(cfg, opt, ocfg, accum=accum, ann=ann)
+        new, m = step(state, data)
+        sync()
+        m = {k: float(v) for k, v in m.items()}
+        out["accum_metrics"] = m
+        for key in ("loss", "grad_norm"):
+            rel = abs(m[key] - metrics["minimal"][key]) / \
+                abs(metrics["minimal"][key])
+            out[f"accum_{key}_rel"] = rel
+            check(rel <= 1e-5, f"prodstep: accum {key} rel {rel:.3e}")
+        one = dict(tree_flatten_with_names(params["minimal"]))
+        old = dict(tree_flatten_with_names(state["params"]))
+        # lr x max|g|: the largest update of the one-batch step; each
+        # param may also round to the other side of one f32 ulp
+        upd = max(float((old[n] - one[n]).abs().max()) for n in one)
+        diff, worst = 0.0, 0.0
+        for n, leaf in tree_flatten_with_names(new["params"]):
+            a = one[n].abs()
+            ulp = torch.nextafter(a, torch.full_like(a, math.inf)) - a
+            d = (leaf - one[n]).abs()
+            diff = max(diff, float(d.max()))
+            worst = max(worst, float((d / (PROD_PARAM_TOL * upd + ulp))
+                                     .max()))
+        out.update(lr_max_g=upd, accum_param_max_diff=diff,
+                   accum_param_worst_share=worst)
+        check(upd > 0 and worst <= 1.0,
+              f"prodstep: accum params differ by up to {diff:.3e}, "
+              f"{worst:.3f} x ({PROD_PARAM_TOL} x lr x max|g| = "
+              f"{PROD_PARAM_TOL * upd:.3e}, plus one ulp of the param)")
+        del new, params, one, old
+        torch.use_deterministic_algorithms(was_det)
+
+        # the production step's time: accum microbatches, remat minimal
+        times = []
+        for _ in range(PROD_TIMED):
+            sync()
+            t0 = time.monotonic()
+            state, m = step(state, data)
+            sync()
+            times.append(time.monotonic() - t0)
+            check(math.isfinite(float(m["loss"])), "prodstep: loss not finite")
+        out["step_s"] = sorted(times)[len(times) // 2]
+        out["step_times_s"] = times
+        del state, data, step, m
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        dist.destroy_process_group()
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def calibration_phase(model_cfg, dev) -> dict:
     """The device section of the checkpoint calibration on a fresh train
     state of its own (freed after): fused encodes vs the per-leaf
@@ -1736,6 +1973,35 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     check(not serve["gate_failures"], "; ".join(serve["gate_failures"]))
 
+    # -- production-style train step: mesh, rules, remat, accumulation ---
+    for f in families:
+        f.reset_launch_counts()
+    prod = prodstep_phase(dev)
+    prod_launches: dict = {}
+    for f in families:
+        prod_launches.update(f.launch_counts())
+    prod["launches"] = prod_launches
+    log(f"prodstep: {prod['arch']} widths, {prod['layers']} layers, "
+        f"{prod['params']:,} params, {prod['dtype']}, batch "
+        f"{prod['batch']} x {prod['seq']}, mesh {prod['mesh']}, accum "
+        f"{prod['accum']}; remat none/full/minimal bit-equal, kept for "
+        f"backward { {k: round(v, 3) for k, v in prod['kept_gb'].items()} }"
+        f" GB, step peak over held "
+        f"{ {k: round(v, 3) for k, v in prod['peak_gb'].items()} } GB, "
+        f"step s { {k: round(v, 3) for k, v in prod['policy_s'].items()} };"
+        f" accum loss rel {prod['accum_loss_rel']:.3e}, grad_norm rel "
+        f"{prod['accum_grad_norm_rel']:.3e}, params max diff "
+        f"{prod['accum_param_max_diff']:.3e} (lr x max|g| "
+        f"{prod['lr_max_g']:.3e}, {prod['accum_param_worst_share']:.3f} of "
+        f"the gate); {len(prod['placement_kinds'])} placement "
+        f"kinds round-tripped over {prod['state_leaves']} leaves; step "
+        f"{prod['step_s']:.3f} s (median of {len(prod['step_times_s'])}); "
+        f"phase {prod['phase_s']:.1f} s; launches of the nine kernels "
+        f"{prod_launches}; card {smi}")
+    print(json.dumps({"prodstep": prod}))
+    check(not any(prod_launches.values()),
+          f"kernels launched on the prodstep path: {prod_launches}")
+
     # -- calibration path: #5/#6 per leaf against the fused #1/#2 --------
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1811,7 +2077,8 @@ def main() -> int:
                          "replaces": replaces, **r, "path": "kernel bench",
                          "drills_launches": drill_launches[name],
                          "paper_launches": paper_launches[name],
-                         "serve_launches": serve_launches[name]})
+                         "serve_launches": serve_launches[name],
+                         "prodstep_launches": prod_launches[name]})
             continue
         r = results[name]
         n = (calib_launches if name in CALIBRATION_KERNELS
@@ -1826,6 +2093,7 @@ def main() -> int:
                      "drills_launches": drill_launches[name],
                      "paper_launches": paper_launches[name],
                      "serve_launches": serve_launches[name],
+                     "prodstep_launches": prod_launches[name],
                      "path": ("calibration" if name in CALIBRATION_KERNELS
                               else "trainer")})
     log(f"total {time.monotonic() - t_start:.1f} s; library_ms is null for "

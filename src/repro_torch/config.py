@@ -1,6 +1,6 @@
-"""Configuration dataclasses of the port: a subset copy of the JAX
-package's ``repro.config`` (model, shape, mesh, optimizer, checkpoint plan
-and the Khaos knobs).
+"""Configuration dataclasses of the port: a copy of the JAX package's
+``repro.config`` (model, shapes, mesh, sharding, optimizer, checkpoint
+plan and legacy checkpoint block, the Khaos knobs and the job config).
 
 Defaults are identical to the reference, so plan names, model widths and
 optimizer hyper-parameters mean the same thing in both frameworks.
@@ -8,6 +8,7 @@ optimizer hyper-parameters mean the same thing in both frameworks.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -177,6 +178,24 @@ class ShapeConfig:
     global_batch: int
 
 
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(model: ModelConfig) -> list[ShapeConfig]:
+    """The assigned shape cells that are well-defined for this arch:
+    long_500k needs sub-quadratic attention, so ssm/hybrid only."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if model.supports_long_context:
+        shapes.append(LONG_500K)
+    return shapes
+
+
 # ---------------------------------------------------------------------------
 # Mesh / distribution
 # ---------------------------------------------------------------------------
@@ -200,6 +219,20 @@ class MeshConfig:
     def num_devices(self) -> int:
         n = self.data * self.model
         return n * self.pods if self.multi_pod else n
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Per-job sharding policy knobs."""
+    fsdp: bool = True                  # shard non-TP weight dim over 'data'
+    fsdp_min_params: int = 3_000_000_000   # enable fsdp only for models above this
+    expert_axis: str = "auto"          # auto | model | data | none
+    decode_kv_seq_shard: bool = True   # flash-decoding style KV-seq sharding on 'model'
+    seq_shard_hidden: bool = False     # Megatron-SP: shard hidden (B,S,d) seq over 'model'
+    moe_megatron: bool = False         # experts: shard d_ff over (data x model) combined
+                                       # instead of d over data
+    gradient_accum: int = 1
+    compress_cross_pod_grads: bool = False   # error-feedback int8 on 'pod' all-reduce
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +374,27 @@ class CheckpointPlan:
         return "-".join(parts)
 
 
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/tmp/repro_ckpt"
+    interval_seconds: float = 60.0      # the Khaos-controlled knob
+    mode: str = "sync"                  # sync | async
+    levels: Sequence[str] = ("local",)  # subset of {memory, local, remote}
+    incremental: bool = False           # delta+int8 encode vs last full ckpt
+    full_every: int = 8                 # full checkpoint every N incrementals
+    keep: int = 3
+
+    def to_plan(self) -> CheckpointPlan:
+        """Lower the legacy job-config block onto the unified plan."""
+        return CheckpointPlan(
+            interval_s=self.interval_seconds,
+            mode="incremental" if self.incremental else "full",
+            full_every=self.full_every,
+            delta_codec="int8" if self.incremental else "lossless",
+            levels=tuple(self.levels),
+            sync=self.mode != "async",
+            keep=self.keep)
+
 
 @dataclass(frozen=True)
 class KhaosConfig:
@@ -375,6 +429,21 @@ class KhaosConfig:
     reconfig_cooldown: float = 120.0
     model_degree: int = 2               # polynomial degree for M_L / M_R
     ridge_lambda: float = 1e-3
+
+
+@dataclass(frozen=True)
+class JobConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = MeshConfig()
+    sharding: ShardingConfig = ShardingConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    checkpoint: CheckpointConfig = CheckpointConfig()
+    khaos: KhaosConfig = KhaosConfig()
+    seed: int = 0
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), default=str, indent=2)
 
 
 def replace(cfg, **kw):

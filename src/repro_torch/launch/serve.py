@@ -6,8 +6,9 @@ config, on the CUDA device unless ``--device`` names another.
 
 Only the ``--local`` path of the JAX package's ``launch/serve.py`` is
 ported: without it the reference compiles the sharded decode step for a
-production mesh, which waits for the port's distribution layer
-(``sharding.py`` and ``launch/mesh.py``, ROADMAP section 1, item 3).
+production mesh.  The sharding rules and meshes are ported
+(``sharding.py``, ``launch/mesh.py``); that path waits for the port's
+roofline and dry run (ROADMAP section 1, item 3).
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     if not args.local:
         ap.error("only --local runs are ported: the production-mesh decode "
-                 "step waits for the port's distribution layer (sharding.py "
-                 "and launch/mesh.py, ROADMAP section 1, item 3)")
+                 "step waits for the port's roofline and dry run "
+                 "(roofline.py and launch/dryrun.py, ROADMAP section 1, "
+                 "item 3)")
 
     import numpy as np
     import torch

@@ -6,8 +6,11 @@ supervised by a ``KhaosRuntime``.
         --duration 60 [--khaos] [--device cpu]
 
 Only the ``--local`` path of the JAX package's ``launch/train.py`` is
-ported: the sharded production step waits for the port's distribution
-layer.
+ported.  Its production path (``--shape``, ``--multi-pod``) compiles the
+sharded step against the dry run's plans; the sharding rules, meshes and
+the accumulated train step it builds on are ported (``sharding.py``,
+``launch/mesh.py``), the roofline and the dry run are not yet (ROADMAP
+section 1, item 3).
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="torch device of the trainer (default: cuda)")
     args = ap.parse_args(argv)
     if not args.local:
-        ap.error("only --local runs are ported: the sharded production "
-                 "step comes with the port's distribution layer")
+        ap.error("only --local runs are ported: the production path waits "
+                 "for the port's roofline and dry run (roofline.py and "
+                 "launch/dryrun.py, ROADMAP section 1, item 3)")
 
     from repro_torch.config import KhaosConfig, OptimizerConfig
     from repro_torch.configs import get_smoke_config

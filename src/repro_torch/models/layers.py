@@ -40,6 +40,30 @@ from repro_torch.config import ModelConfig
 
 Params = Any
 
+
+class NullAnnotator:
+    """No-op activation-sharding annotator (single-device runs).  The
+    layers call ``ann.constrain(x, kind)`` where the reference pins an
+    activation's layout, and group the MoE dispatch by
+    ``ann.moe_groups``; ``repro_torch.sharding.ActivationAnnotator`` is
+    the mesh-aware one."""
+    dp_size: int = 1
+    moe_groups: int = 1
+
+    def constrain(self, x, kind: str):
+        return x
+
+
+NULL_ANN = NullAnnotator()
+
+
+class _Groups(NullAnnotator):
+    """A no-op annotator that only sets the MoE group count."""
+
+    def __init__(self, groups: int):
+        self.moe_groups = groups
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
            "int32": torch.int32}
@@ -310,7 +334,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 def attention_sequence(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                        positions: torch.Tensor, causal: bool = True,
                        window: int = 0, kv_override=None,
-                       return_kv: bool = False):
+                       return_kv: bool = False, ann=NULL_ANN):
     """Attention over a full sequence (train / prefill).  GQA KV is
     repeated up to H heads; the chunked path is taken by the reference's
     rule (``attn_impl`` "xla_chunked"/"pallas", S > attn_chunk_q and both
@@ -334,6 +358,9 @@ def attention_sequence(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
+    q = ann.constrain(q, "heads")
+    k = ann.constrain(k, "heads")
+    v = ann.constrain(v, "heads")
     S = x.shape[1]
     use_flash = cfg.attn_impl in ("xla_chunked", "pallas") \
         and S > cfg.attn_chunk_q and S % cfg.attn_chunk_q == 0 \
@@ -464,11 +491,13 @@ def _act(name: str, g: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              ann=NULL_ANN) -> torch.Tensor:
     dt = x.dtype
-    up = x @ p["w_up"].to(dt)
+    up = ann.constrain(x @ p["w_up"].to(dt), "wide")
     if "w_gate" in p:
-        h = _act(cfg.activation, x @ p["w_gate"].to(dt)) * up
+        h = _act(cfg.activation,
+                 ann.constrain(x @ p["w_gate"].to(dt), "wide")) * up
     else:
         h = _act(cfg.activation, up)
     return h @ p["w_down"].to(dt)
@@ -503,12 +532,13 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              groups: int = 1):
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, ann=NULL_ANN,
+              *, groups: Optional[int] = None):
     """Top-k MoE, GShard-style grouped dispatch with scatter.
 
-    Tokens are split into G groups (``groups``, the reference's
-    ``ann.moe_groups``: its data-parallel degree); each group routes its
+    Tokens are split into G groups (``ann.moe_groups``, the data-parallel
+    degree; ``groups=`` is shorthand for a no-op annotator with that
+    count and cannot be combined with another annotator); each group routes its
     tokens into a capacity-bounded (E, C, d) buffer, the expert FFNs run
     as one batched einsum over E, and the results gather back with the
     top-k gate-weighted combine.  Overflowed tokens drop (GShard
@@ -519,7 +549,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     E, k = mo.num_experts, mo.top_k
     dt = x.dtype
     dev = x.device
-    G = max(1, min(groups, T))
+    if groups is not None:
+        if ann is not NULL_ANN:
+            raise ValueError("apply_moe takes groups= or ann=, not both")
+        ann = _Groups(groups)
+    G = max(1, min(ann.moe_groups, T))
     while T % G != 0:
         G -= 1
     Tg = T // G
@@ -550,7 +584,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     for j in range(k):
         buf.index_put_((g_idx, e_tk[..., j], p_tk[..., j]), xt,
                        accumulate=True)
-    buf = buf[:, :, :C]                                         # (G, E, C, d)
+    buf = ann.constrain(buf[:, :, :C], "moe_buf")               # (G, E, C, d)
 
     up = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
     if "w_gate" in p:
@@ -559,7 +593,9 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         h = g * up
     else:
         h = _act(cfg.activation, up)
+    h = ann.constrain(h, "moe_hidden")
     out = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    out = ann.constrain(out, "moe_buf")
     out = torch.cat([out, torch.zeros((G, E, 1, d), dtype=dt, device=dev)],
                     dim=2)
 
@@ -646,14 +682,14 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor):
 
 def rglru_sequence(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    h0: Optional[torch.Tensor] = None, conv_state=None,
-                   chunk: int = 256):
+                   chunk: int = 256, ann=NULL_ANN):
     """RG-LRU block over a sequence. x: (B, S, d) -> (y, (h_last,
     conv_tail)).  h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t u_t), scanned
     per chunk of ``chunk`` steps and carried across chunks."""
     B, S, d = x.shape
     dt = x.dtype
-    u = x @ p["w_x"].to(dt)                                    # (B, S, lru)
-    gate = _gelu(x @ p["w_gate"].to(dt))
+    u = ann.constrain(x @ p["w_x"].to(dt), "wide")             # (B, S, lru)
+    gate = ann.constrain(_gelu(x @ p["w_gate"].to(dt)), "wide")
     lru = u.shape[-1]
     cw = cfg.recurrent.conv1d_width
 

@@ -10,7 +10,9 @@ H, hd); the hybrid family's ``groups/rec`` is (G, n_rec, ...),
 ``groups/attn`` (G, ...) and ``tail`` (n_tail, ...)), so a state flattens
 to the same names in the same order in both frameworks and the carry-over
 is a rename-free copy.  The layer stacks are plain loops over that axis
-(the reference scans them).
+(the reference scans them); each layer body (each group of the hybrid
+stack) runs under ``cfg.remat_policy`` when autograd records, as the
+reference's scan bodies run under ``jax.checkpoint``.
 
 Decode consumes its caches: each step writes the new token's K/V and the
 recurrent states into the cache tensors it is given and returns them
@@ -24,6 +26,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models import layers as L
@@ -32,9 +36,47 @@ from repro_torch.utils.trees import (tensor_to_numpy, to_tensor, tree_map,
                                      tree_structure, tree_unflatten,
                                      tree_leaves)
 
+_aten = torch.ops.aten
+
 Params = Any
 
 VLM_VISION_TOKENS = 1024   # stub frontend: fixed number of patch embeddings
+
+
+# ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+def _dots_with_no_batch_dims(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the products that
+    have no batch dimension (``x @ W`` lowers to ``mm``/``addmm``, an
+    einsum that contracts with a weight to ``bmm`` over a batch of one);
+    recompute everything else, batched attention products included."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat_policy``: "none" keeps every activation,
+    "minimal" keeps only the no-batch-dim products and "full" (any other
+    value, as in the reference) keeps nothing but the body's inputs; the
+    rest is recomputed in the backward pass.  Without autograd recording
+    (prefill, decode, ``torch.no_grad``) ``fn`` runs as it is."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "minimal":
+        kw = {"context_fn": partial(create_selective_checkpoint_contexts,
+                                    _dots_with_no_batch_dims)}
+    else:
+        kw = {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
@@ -142,49 +184,63 @@ def _stack_caches(per_layer: list) -> Params:
     return tree_unflatten(treedef, [torch.stack(c) for c in cols])
 
 
-def _run_uniform_stack(params, cfg: ModelConfig, x, positions, *,
-                       collect_kv: bool, causal: bool = True,
-                       window: int = 0):
-    """dense/moe/vlm/ssm stacks (uniform per-layer structure)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = []
-    for i in range(_n_stacked(params["layers"])):
-        lp = _index_tree(params["layers"], i)
-        if cfg.family == "ssm":
-            h = L.apply_norm(lp["ln1"], x, cfg)
-            y, (tm_x, tm_s) = L.rwkv_time_mix(lp["mix"], h, cfg)
-            x = x + y
-            h = L.apply_norm(lp["ln2"], x, cfg)
-            y, cm_x = L.rwkv_channel_mix(lp["mix"], h, cfg)
-            x = x + y
-            if collect_kv:
-                caches.append({"tm_x": tm_x, "tm_s": tm_s, "cm_x": cm_x})
-            continue
+def _uniform_layer(lp, x, aux, *, cfg: ModelConfig, positions,
+                   collect_kv: bool, causal: bool, window: int, ann):
+    """One layer of the dense/moe/vlm/ssm stacks: (x, aux) -> (x, aux,
+    this layer's cache or None)."""
+    x = ann.constrain(x, "hidden")
+    ys = None
+    if cfg.family == "ssm":
+        h = L.apply_norm(lp["ln1"], x, cfg)
+        y, (tm_x, tm_s) = L.rwkv_time_mix(lp["mix"], h, cfg)
+        x = x + y
+        h = L.apply_norm(lp["ln2"], x, cfg)
+        y, cm_x = L.rwkv_channel_mix(lp["mix"], h, cfg)
+        x = x + y
+        if collect_kv:
+            ys = {"tm_x": tm_x, "tm_s": tm_s, "cm_x": cm_x}
+    else:
         h = L.apply_norm(lp["ln1"], x, cfg)
         if collect_kv:
             a, (k, v) = L.attention_sequence(
                 lp["attn"], h, cfg, positions=positions, causal=causal,
-                window=window, return_kv=True)
-            caches.append({"k": k, "v": v})
+                window=window, return_kv=True, ann=ann)
+            ys = {"k": k, "v": v}
         else:
             a = L.attention_sequence(lp["attn"], h, cfg, positions=positions,
-                                     causal=causal, window=window)
-        x = x + a
+                                     causal=causal, window=window, ann=ann)
+        x = ann.constrain(x + a, "hidden")
         h = L.apply_norm(lp["ln2"], x, cfg)
         if cfg.family == "moe":
-            y, aux_l = L.apply_moe(lp["moe"], h, cfg)
+            y, aux_l = L.apply_moe(lp["moe"], h, cfg, ann=ann)
             aux = aux + aux_l
         else:
-            y = L.apply_ffn(lp["ffn"], h, cfg)
+            y = L.apply_ffn(lp["ffn"], h, cfg, ann=ann)
         x = x + y
+    return ann.constrain(x, "hidden"), aux, ys
+
+
+def _run_uniform_stack(params, cfg: ModelConfig, x, positions, *,
+                       collect_kv: bool, causal: bool = True,
+                       window: int = 0, ann=L.NULL_ANN):
+    """dense/moe/vlm/ssm stacks (uniform per-layer structure)."""
+    body = _remat(partial(_uniform_layer, cfg=cfg, positions=positions,
+                          collect_kv=collect_kv, causal=causal,
+                          window=window, ann=ann), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for i in range(_n_stacked(params["layers"])):
+        x, aux, ys = body(_index_tree(params["layers"], i), x, aux)
+        caches.append(ys)
     return x, aux, (_stack_caches(caches) if collect_kv else None)
 
 
-def _hybrid_sublayer(lp, x, cfg, positions, kind: str, collect: bool):
+def _hybrid_sublayer(lp, x, cfg, positions, kind: str, collect: bool,
+                     ann=L.NULL_ANN):
     h = L.apply_norm(lp["ln"], x, cfg)
     st = None
     if kind == "recurrent":
-        y, (h_last, conv_tail) = L.rglru_sequence(lp["mix"], h, cfg)
+        y, (h_last, conv_tail) = L.rglru_sequence(lp["mix"], h, cfg, ann=ann)
         if collect:
             st = {"h": h_last, "conv": conv_tail}
     else:
@@ -192,7 +248,7 @@ def _hybrid_sublayer(lp, x, cfg, positions, kind: str, collect: bool):
         if collect:
             y, (k, v) = L.attention_sequence(
                 lp["attn"], h, cfg, positions=positions, causal=True,
-                window=W, return_kv=True)
+                window=W, return_kv=True, ann=ann)
             S = k.shape[1]
             if S < W:
                 pad = (0, 0, 0, 0, 0, W - S)
@@ -205,34 +261,42 @@ def _hybrid_sublayer(lp, x, cfg, positions, kind: str, collect: bool):
             st = {"k": k, "v": v}
         else:
             y = L.attention_sequence(lp["attn"], h, cfg, positions=positions,
-                                     causal=True, window=W)
-    x = x + y
+                                     causal=True, window=W, ann=ann)
+    x = ann.constrain(x + y, "hidden")
     h = L.apply_norm(lp["ffn_ln"], x, cfg)
-    x = x + L.apply_ffn(lp["ffn"], h, cfg)
+    x = ann.constrain(x + L.apply_ffn(lp["ffn"], h, cfg, ann=ann), "hidden")
     return x, st
 
 
+def _hybrid_group(gp, x, *, cfg: ModelConfig, positions, collect_kv: bool,
+                  ann):
+    """One (recurrent x n_rec, attention) group of the hybrid stack."""
+    x = ann.constrain(x, "hidden")
+    recs = []
+    for i in range(_hybrid_layout(cfg)[0]):
+        x, st = _hybrid_sublayer(_index_tree(gp["rec"], i), x, cfg,
+                                 positions, "recurrent", collect_kv, ann)
+        recs.append(st)
+    x, attn_st = _hybrid_sublayer(gp["attn"], x, cfg, positions,
+                                  "attention", collect_kv, ann)
+    ys = {"rec": _stack_caches(recs), "attn": attn_st} if collect_kv \
+        else None
+    return x, ys
+
+
 def _run_hybrid_stack(params, cfg: ModelConfig, x, positions, *,
-                      collect_kv: bool):
-    n_rec = _hybrid_layout(cfg)[0]
+                      collect_kv: bool, ann=L.NULL_ANN):
+    body = _remat(partial(_hybrid_group, cfg=cfg, positions=positions,
+                          collect_kv=collect_kv, ann=ann), cfg)
     group_caches = []
     for g in range(_n_stacked(params["groups"])):
-        gp = _index_tree(params["groups"], g)
-        recs = []
-        for i in range(n_rec):
-            x, st = _hybrid_sublayer(_index_tree(gp["rec"], i), x, cfg,
-                                     positions, "recurrent", collect_kv)
-            recs.append(st)
-        x, attn_st = _hybrid_sublayer(gp["attn"], x, cfg, positions,
-                                      "attention", collect_kv)
-        if collect_kv:
-            group_caches.append({"rec": _stack_caches(recs),
-                                 "attn": attn_st})
+        x, ys = body(_index_tree(params["groups"], g), x)
+        group_caches.append(ys)
     tail_caches = []
     if "tail" in params:
         for i in range(_n_stacked(params["tail"])):
             x, st = _hybrid_sublayer(_index_tree(params["tail"], i), x, cfg,
-                                     positions, "recurrent", collect_kv)
+                                     positions, "recurrent", collect_kv, ann)
             tail_caches.append(st)
     caches = None
     if collect_kv:
@@ -242,56 +306,77 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, positions, *,
     return x, caches
 
 
+def _audio_enc_layer(lp, x, *, cfg: ModelConfig, positions, ann):
+    x = ann.constrain(x, "hidden")
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    x = x + L.attention_sequence(lp["attn"], h, cfg, positions=positions,
+                                 causal=False, ann=ann)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    x = x + L.apply_ffn(lp["ffn"], h, cfg, ann=ann)
+    return ann.constrain(x, "hidden")
+
+
+def _audio_dec_layer(lp, x, enc_out, *, cfg: ModelConfig, positions,
+                     collect_kv: bool, ann):
+    dt = x.dtype
+    x = ann.constrain(x, "hidden")
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    ys = None
+    if collect_kv:
+        a, (k, v) = L.attention_sequence(
+            lp["self_attn"], h, cfg, positions=positions, causal=True,
+            return_kv=True, ann=ann)
+    else:
+        a = L.attention_sequence(lp["self_attn"], h, cfg,
+                                 positions=positions, causal=True, ann=ann)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    ck = torch.einsum("bsd,dnh->bsnh", enc_out,
+                      lp["cross_attn"]["wk"].to(dt))
+    cv = torch.einsum("bsd,dnh->bsnh", enc_out,
+                      lp["cross_attn"]["wv"].to(dt))
+    x = x + L.attention_sequence(lp["cross_attn"], h, cfg,
+                                 positions=positions, causal=False,
+                                 kv_override=(ck, cv, None), ann=ann)
+    h = L.apply_norm(lp["ln3"], x, cfg)
+    x = ann.constrain(x + L.apply_ffn(lp["ffn"], h, cfg, ann=ann), "hidden")
+    if collect_kv:
+        ys = {"k": k, "v": v, "ck": ck, "cv": cv}
+    return x, ys
+
+
 def _run_audio_stack(params, cfg: ModelConfig, frames, dec_x, dec_positions,
-                     *, collect_kv: bool):
+                     *, collect_kv: bool, ann=L.NULL_ANN):
     B, Se = frames.shape[:2]
     enc_positions = torch.arange(Se, device=frames.device)[None].expand(B, Se)
+    enc_body = _remat(partial(_audio_enc_layer, cfg=cfg,
+                              positions=enc_positions, ann=ann), cfg)
     x = frames
     for i in range(_n_stacked(params["enc_layers"])):
-        lp = _index_tree(params["enc_layers"], i)
-        h = L.apply_norm(lp["ln1"], x, cfg)
-        x = x + L.attention_sequence(lp["attn"], h, cfg,
-                                     positions=enc_positions, causal=False)
-        h = L.apply_norm(lp["ln2"], x, cfg)
-        x = x + L.apply_ffn(lp["ffn"], h, cfg)
+        x = enc_body(_index_tree(params["enc_layers"], i), x)
     enc_out = L.apply_norm(params["enc_norm"], x, cfg)
 
+    dec_body = _remat(partial(_audio_dec_layer, cfg=cfg,
+                              positions=dec_positions,
+                              collect_kv=collect_kv, ann=ann), cfg)
     x = dec_x
-    dt = x.dtype
     caches = []
     for i in range(_n_stacked(params["dec_layers"])):
-        lp = _index_tree(params["dec_layers"], i)
-        h = L.apply_norm(lp["ln1"], x, cfg)
-        if collect_kv:
-            a, (k, v) = L.attention_sequence(
-                lp["self_attn"], h, cfg, positions=dec_positions,
-                causal=True, return_kv=True)
-        else:
-            a = L.attention_sequence(lp["self_attn"], h, cfg,
-                                     positions=dec_positions, causal=True)
-        x = x + a
-        h = L.apply_norm(lp["ln2"], x, cfg)
-        ck = torch.einsum("bsd,dnh->bsnh", enc_out,
-                          lp["cross_attn"]["wk"].to(dt))
-        cv = torch.einsum("bsd,dnh->bsnh", enc_out,
-                          lp["cross_attn"]["wv"].to(dt))
-        x = x + L.attention_sequence(lp["cross_attn"], h, cfg,
-                                     positions=dec_positions, causal=False,
-                                     kv_override=(ck, cv, None))
-        h = L.apply_norm(lp["ln3"], x, cfg)
-        x = x + L.apply_ffn(lp["ffn"], h, cfg)
-        if collect_kv:
-            caches.append({"k": k, "v": v, "ck": ck, "cv": cv})
+        x, ys = dec_body(_index_tree(params["dec_layers"], i), x, enc_out)
+        caches.append(ys)
     return x, (_stack_caches(caches) if collect_kv else None)
 
 
 def forward_logits(params, cfg: ModelConfig, batch: dict, *,
-                   collect_kv: bool = False, last_token_only: bool = False):
+                   collect_kv: bool = False, last_token_only: bool = False,
+                   ann=L.NULL_ANN):
     """Sequence forward for train/prefill.  Returns (logits, aux, caches).
 
     ``last_token_only`` (prefill) computes logits for the final position
     only; ``collect_kv`` returns each layer's K/V or recurrent state,
-    stacked per layer, as prefill hands them to decode."""
+    stacked per layer, as prefill hands them to decode.  ``ann`` pins
+    activation layouts (``repro_torch.sharding.ActivationAnnotator``) and
+    sets the MoE group count."""
     if cfg.family == "audio":
         frames = batch["frames"].to(L._dtype(cfg))
         dec_tokens = batch["dec_tokens"]
@@ -299,7 +384,7 @@ def forward_logits(params, cfg: ModelConfig, batch: dict, *,
         B, Sd = dec_tokens.shape
         dec_pos = torch.arange(Sd, device=dec_x.device)[None].expand(B, Sd)
         x, caches = _run_audio_stack(params, cfg, frames, dec_x, dec_pos,
-                                     collect_kv=collect_kv)
+                                     collect_kv=collect_kv, ann=ann)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         tokens = batch["tokens"]
@@ -309,6 +394,7 @@ def forward_logits(params, cfg: ModelConfig, batch: dict, *,
             ve = batch["vision_embeds"].to(x.dtype)
             nv = ve.shape[1]
             x = torch.cat([x[:, :nv] + ve, x[:, nv:]], dim=1)
+        x = ann.constrain(x, "hidden")
         if cfg.mrope_sections and "positions" in batch:
             positions = batch["positions"]
         else:
@@ -318,15 +404,17 @@ def forward_logits(params, cfg: ModelConfig, batch: dict, *,
         if cfg.family == "hybrid":
             pos2d = positions if positions.ndim == 2 else positions[0]
             x, caches = _run_hybrid_stack(params, cfg, x, pos2d,
-                                          collect_kv=collect_kv)
+                                          collect_kv=collect_kv, ann=ann)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             x, aux, caches = _run_uniform_stack(params, cfg, x, positions,
-                                                collect_kv=collect_kv)
+                                                collect_kv=collect_kv,
+                                                ann=ann)
     if last_token_only:
         x = x[:, -1:]
     x = L.apply_norm(params["final_norm"], x, cfg)
-    logits = L.logits_from_hidden(params["emb"], x, cfg)
+    logits = ann.constrain(L.logits_from_hidden(params["emb"], x, cfg),
+                           "logits")
     return logits, aux, caches
 
 
@@ -334,7 +422,8 @@ def forward_logits(params, cfg: ModelConfig, batch: dict, *,
 # Decode forward
 # ---------------------------------------------------------------------------
 
-def forward_decode(params, cfg: ModelConfig, caches, tokens, pos):
+def forward_decode(params, cfg: ModelConfig, caches, tokens, pos,
+                   ann=L.NULL_ANN):
     """One decode step.  tokens (B, 1) int; pos (B,) int.
 
     Returns (logits (B, vocab_pad), caches).  The caches given are
@@ -353,7 +442,7 @@ def forward_decode(params, cfg: ModelConfig, caches, tokens, pos):
             x = x + a
             h = L.apply_norm(lp["ln2"], x, cfg)
             if cfg.family == "moe":
-                y, _ = L.apply_moe(lp["moe"], h, cfg)
+                y, _ = L.apply_moe(lp["moe"], h, cfg, ann=ann)
             else:
                 y = L.apply_ffn(lp["ffn"], h, cfg)
             x = x + y
@@ -440,63 +529,108 @@ def forward_decode(params, cfg: ModelConfig, caches, tokens, pos):
 # Step factories
 # ---------------------------------------------------------------------------
 
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, ann=L.NULL_ANN):
     def loss_fn(params, batch):
-        logits, aux, _ = forward_logits(params, cfg, batch)
+        logits, aux, _ = forward_logits(params, cfg, batch, ann=ann)
         ce = L.cross_entropy(logits, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    opt_cfg: OptimizerConfig):
-    """One functional training step (gradient accumulation 1): returns
-    ``train_step(state, batch) -> (new_state, metrics)``.  The new state is
-    built of NEW tensors; nothing in ``state`` is modified, which the
-    checkpoint plane's deferred snapshot and device delta base rely on."""
-    loss_fn = make_loss_fn(cfg)
+def _split_micro(x: torch.Tensor, accum: int, bsz: int) -> torch.Tensor:
+    """Split the global-batch dim into (accum, B/accum): leading-batch
+    leaves and (3, B, S) position ids (the accum axis moved to the
+    front)."""
+    if x.shape[0] == bsz:
+        return x.reshape((accum, bsz // accum) + tuple(x.shape[1:]))
+    if x.ndim >= 2 and x.shape[1] == bsz:
+        y = x.reshape((x.shape[0], accum, bsz // accum)
+                      + tuple(x.shape[2:]))
+        return torch.movedim(y, 1, 0)
+    raise ValueError(f"cannot microbatch leaf of shape {tuple(x.shape)}")
 
-    def train_step(state, batch):
-        params = state["params"]
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                    opt_cfg: OptimizerConfig, accum: int = 1,
+                    ann=L.NULL_ANN, accum_dtype: str = "float32"):
+    """One functional training step: returns ``train_step(state, batch) ->
+    (new_state, metrics)``.  With ``accum > 1`` the batch is split into
+    ``accum`` microbatches whose gradients are summed in ``accum_dtype``
+    (bf16 adds bf16 to bf16), then divided by ``accum`` and cast to
+    float32; the loss is the microbatches' mean and the metrics ``ce`` =
+    that mean (ce + aux) and ``aux`` = 0, as in the reference.  The new
+    state is built of NEW tensors; nothing in ``state`` is modified,
+    which the checkpoint plane's deferred snapshot and device delta base
+    rely on."""
+    loss_fn = make_loss_fn(cfg, ann=ann)
+    adt = L.dtype_of(accum_dtype)
+
+    def grad_fn(params, batch):
         treedef = tree_structure(params)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
             grads = torch.autograd.grad(loss, leaves)
-        grads = tree_unflatten(treedef, list(grads))
+        return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
+
+    def train_step(state, batch):
+        params = state["params"]
+        if accum <= 1:
+            loss, metrics, grads = grad_fn(params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            lead = batch.get("tokens", batch.get("frames"))
+            bsz = lead.shape[0]
+            mbs = {k: _split_micro(v, accum, bsz) for k, v in batch.items()}
+            gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
+                    for p in tree_leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=lead.device)
+            for i in range(accum):
+                l, _, g = grad_fn(params, {k: v[i] for k, v in mbs.items()})
+                gsum = [a + b.to(adt) for a, b in zip(gsum, tree_leaves(g))]
+                loss = loss + l
+                del g
+            grads = tree_unflatten(tree_structure(params),
+                                   [(g / accum).to(torch.float32)
+                                    for g in gsum])
+            del gsum
+            loss = loss / accum
+            metrics = {"ce": loss,
+                       "aux": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
         with torch.no_grad():
             new_params, new_opt = optimizer.update(
                 grads, state["opt"], params, state["step"])
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        out_metrics = {"loss": loss.detach(), "grad_norm": gnorm.detach(),
-                       **{k: v.detach() for k, v in metrics.items()}}
+        out_metrics = {"loss": loss, "grad_norm": gnorm.detach(), **metrics}
         return new_state, out_metrics
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, ann=L.NULL_ANN):
     """``prefill(params, inputs) -> (next_token (B,) int32, caches)``."""
     @torch.no_grad()
     def prefill(params, inputs):
         logits, _, caches = forward_logits(params, cfg, inputs,
                                            collect_kv=True,
-                                           last_token_only=True)
+                                           last_token_only=True, ann=ann)
         next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_token, caches
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, ann=L.NULL_ANN):
     """``decode(params, caches, {"tokens", "pos"}) -> (next_token (B, 1)
     int32, caches)``; the caches given are consumed (written in place)."""
     @torch.no_grad()
     def decode(params, caches, inputs):
         logits, new_caches = forward_decode(params, cfg, caches,
-                                            inputs["tokens"], inputs["pos"])
+                                            inputs["tokens"], inputs["pos"],
+                                            ann=ann)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token[:, None], new_caches
     return decode
@@ -588,6 +722,13 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> Any:
                 "ck": _spec((Ld, B, Se, K, hd), kvdt),
                 "cv": _spec((Ld, B, Se, K, hd), kvdt)}
     raise ValueError(cfg.family)
+
+
+def state_specs(cfg: ModelConfig, optimizer: Optimizer) -> dict:
+    """The train state ``{"params", "opt", "step"}`` as ``meta`` tensors:
+    the names, shapes and dtypes ``init_state`` builds, nothing
+    allocated."""
+    return init_state(cfg, optimizer, torch.Generator(), "meta")
 
 
 def zeros_like_specs(specs: Any, device: Any) -> Any:

@@ -1,4 +1,5 @@
-"""Functional AdamW and global-norm clipping over dict pytrees.
+"""Functional AdamW, SGD with momentum and global-norm clipping over dict
+pytrees.
 
 Every update builds NEW tensors (never ``p.add_()``): the checkpoint plane
 holds references to the previous state's tensors — the delta base and the
@@ -83,7 +84,38 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(init, update)
 
 
+def sgd(cfg: OptimizerConfig) -> Optimizer:
+    """SGD with momentum 0.9; the momentum lives in float32 and the new
+    params are cast back to each param's dtype."""
+    sched = make_schedule(cfg)
+    momentum = 0.9
+
+    def init(params):
+        return {"mom": tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)}
+
+    def update(grads, state, params, step):
+        lr = sched(step)
+
+        def upd(g, m, p):
+            m_new = momentum * m + g.to(torch.float32)
+            p_new = p.to(torch.float32) - lr * m_new
+            return p_new.to(p.dtype), m_new
+
+        treedef = tree_structure(params)
+        out = [upd(g, m, p) for g, m, p in
+               zip(tree_leaves(grads), tree_leaves(state["mom"]),
+                   tree_leaves(params))]
+        new_p = tree_unflatten(treedef, [o[0] for o in out])
+        new_m = tree_unflatten(treedef, [o[1] for o in out])
+        return new_p, {"mom": new_m}
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
     if cfg.name == "adamw":
         return adamw(cfg)
-    raise ValueError(f"optimizer {cfg.name!r} is not ported yet")
+    if cfg.name == "sgd":
+        return sgd(cfg)
+    raise ValueError(f"unknown optimizer {cfg.name}")

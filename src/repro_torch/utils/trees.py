@@ -85,6 +85,14 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
                           [fn(leaf) for leaf in tree_leaves(tree)])
 
 
+def tree_map_with_names(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """Map ``fn(slash/path/name, leaf)`` over a tree, keeping its
+    structure."""
+    return tree_unflatten(tree_structure(tree),
+                          [fn(n, leaf) for n, leaf in
+                           tree_flatten_with_names(tree)])
+
+
 # ---------------------------------------------------------------------------
 # dtype / device helpers shared by the checkpoint plane
 # ---------------------------------------------------------------------------

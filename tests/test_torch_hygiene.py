@@ -39,7 +39,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "utils.timing", "configs.codeqwen1_5_7b",
                 "configs.internlm2_20b", "configs.olmoe_1b_7b",
                 "configs.qwen2_5_14b", "configs.qwen2_vl_7b",
-                "configs.whisper_small"):
+                "configs.whisper_small", "sharding", "launch.mesh",
+                "optim.compression"):
         assert f"repro_torch.{mod}" in mods
     for family in ("ckpt_delta", "flash_attention", "rglru", "rwkv6"):
         for part in ("", ".kernel", ".ops", ".ref"):
