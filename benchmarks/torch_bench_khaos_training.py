@@ -10,19 +10,23 @@ the full three-phase pipeline — sequenced by ``KhaosRuntime`` — to pick
 the checkpoint interval for a continual-training job ingesting a variable
 document stream, against Young/Daly and naive statics.
 
-The step bound is the reference's assumed 2.0 s (its default when no
-dry-run record exists), not a measurement: this twin reads no dry-run
-record.  Phase 2, the simulate-to-verify plan replay and the day-scale
-Phase 3 all run as lanes on the torch lane engine (on the CUDA device
-unless ``device`` names another; ``engine="numpy"`` takes the NumPy
-lanes, which give the same bits): Khaos AND every static baseline are
-lanes of ONE campaign, the Khaos lane supervised controller-in-the-loop
+The step bound is the roofline bound of the arch's train_4k cell on the
+16x16 mesh in the port's dry-run record (``python -m
+repro_torch.launch.dryrun``, ``experiments/dryrun_torch.json``): a model
+of an H100 mesh, not a measurement.  Without a record it is the
+reference's assumed 2.0 s, and the banner says which.  Phase 2, the
+simulate-to-verify plan replay and the day-scale Phase 3 all run as
+lanes on the torch lane engine (on the CUDA device unless ``device``
+names another; ``engine="numpy"`` takes the NumPy lanes, which give the
+same bits): Khaos AND every static baseline are lanes of ONE campaign, the Khaos lane supervised controller-in-the-loop
 (``KhaosRuntime.drive_campaign``).  Goodput, recoveries and checkpoint
 counts are simulated quantities, the same on any device.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -38,11 +42,20 @@ from repro_torch.sim import (BatchedDeployment, LaneSpec, costmodel_from_arch,
 DAY = 86_400.0
 #: the reference's step bound when it finds no dry-run record (seconds)
 ASSUMED_BOUND_S = 2.0
+#: the port's dry-run record (``repro_torch.launch.dryrun``'s default)
+DRYRUN_PATH = "experiments/dryrun_torch.json"
 
 
-def _arch_costmodel(arch: str = "yi-6b"):
+def _arch_costmodel(arch: str = "yi-6b", dryrun_path: str = DRYRUN_PATH):
     cfg = get_config(arch)
     bound = ASSUMED_BOUND_S
+    if os.path.exists(dryrun_path):
+        with open(dryrun_path) as f:
+            for r in json.load(f):
+                if r.get("arch") == arch and r.get("shape") == "train_4k" \
+                        and r.get("mesh") == "16x16":
+                    bound = r["bound_step_s"]
+                    break
     cm = costmodel_from_arch(
         param_count=cfg.param_count(), bound_step_s=bound,
         tokens_per_step=256 * 4096, seq_len=4096,
@@ -61,8 +74,13 @@ def bench_khaos_training(arch: str = "yi-6b", day: float = DAY,
     Phase-3 campaign before it runs (a probe's hook)."""
     dev = device if engine == "device" else None
     cfg, cm, bound = _arch_costmodel(arch)
-    print(f"\n=== Khaos for training: {arch} (assumed step bound "
-          f"{bound:.2f}s, the reference's default, not a measurement; "
+    if bound == ASSUMED_BOUND_S:
+        src = "assumed step bound {:.2f}s, the reference's default, not a " \
+            "measurement"
+    else:
+        src = "roofline-bound step {:.2f}s of " + DRYRUN_PATH + \
+            ", a model of an H100 mesh"
+    print(f"\n=== Khaos for training: {arch} ({src.format(bound)}; "
           f"ckpt {cm.ckpt_duration_s:.1f}s for "
           f"{cfg.param_count()*12/2**30:.0f} GiB TrainState) ===")
 

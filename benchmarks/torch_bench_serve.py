@@ -3,7 +3,7 @@ and ``StreamServer`` for every model family, at published widths and
 full depth.
 
     PYTHONPATH=src python benchmarks/torch_bench_serve.py [--device cpu] \
-        [--smoke]
+        [--smoke] [--rows serve-yi,serve-rwkv]
 
 Each token-family row (dense, moe, hybrid, ssm, vlm) runs one config of
 ``repro_torch.configs`` with random weights from a seed (float32 params):
@@ -472,19 +472,24 @@ def smoke_sweep(dev, B: int = 2, S: int = 16, seed: int = 0) -> list:
     return out
 
 
-def serve_phase(dev, rows=ROWS, smoke: bool = False) -> dict:
+def serve_phase(dev, rows=ROWS, smoke: bool = False,
+                only: Optional[set] = None) -> dict:
     """Every row, then the SMOKE sweep; ``smoke`` takes the SMOKE configs
-    for the rows (the CPU rehearsal)."""
+    for the rows (the CPU rehearsal).  ``only`` names the rows to run,
+    each with its own seed, and leaves out the sweep."""
     dev = resolve_device(dev)
     result = {"rows": []}
     for i, (name, arch, P, new, B, frames) in enumerate(rows):
+        if only is not None and name not in only:
+            continue
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
         result["rows"].append(serve_row(name, cfg, P, new, B, dev,
                                         frames=frames,
                                         int8=arch in INT8_ARCHS, seed=i))
-    t0 = time.perf_counter()
-    result["smoke"] = smoke_sweep(dev)
-    result["smoke_s"] = time.perf_counter() - t0
+    if only is None:
+        t0 = time.perf_counter()
+        result["smoke"] = smoke_sweep(dev)
+        result["smoke_s"] = time.perf_counter() - t0
     return result
 
 
@@ -498,7 +503,7 @@ def gate_failures(result: dict) -> list:
         if not (r["finite"] and r["tokens_in_vocab"]):
             bad.append(f"{r['row']}: bf16 logits not finite or tokens out "
                        f"of the vocabulary")
-    for s in result["smoke"]:
+    for s in result.get("smoke", []):
         if not (s["tokens_equal"] and s["max_rel"] <= SMOKE_REL):
             bad.append(f"SMOKE {s['arch']}: device against host tokens equal "
                        f"{s['tokens_equal']}, max rel {s['max_rel']:.3e}")
@@ -513,9 +518,13 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="the rows at their SMOKE configs and sizes")
+    ap.add_argument("--rows", default=None,
+                    help="comma-separated row names (default: every row), "
+                         "run without the SMOKE sweep")
     args = ap.parse_args()
     res = serve_phase(args.device, rows=SMOKE_ROWS if args.smoke else ROWS,
-                      smoke=args.smoke)
+                      smoke=args.smoke,
+                      only=set(args.rows.split(",")) if args.rows else None)
     print(json.dumps(res))
     bad = gate_failures(res)
     if bad:

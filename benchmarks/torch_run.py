@@ -24,11 +24,13 @@ device unless ``--device`` names another):
   E9   ``torch_bench_khaos_training.main``: Khaos on a training job;
   E5   ``torch_bench_ckpt.main``: the checkpoint bench and its calibration
        artifact (``BENCH_ckpt_torch.json``);
-  E6   ``torch_bench_kernels.main``: the kernel bench.
+  E6   ``torch_bench_kernels.main``: the kernel bench;
+  E7   ``torch_bench_dryrun.main``: the dry-run and roofline table of
+       ``experiments/dryrun_torch.json`` (``python -m
+       repro_torch.launch.dryrun`` writes it; without it the section says
+       how to make it).
 
-E7 (``bench_dryrun.py``) is the one section not run: it waits for the
-port's ``launch/dryrun.py`` (ROADMAP §1 item 3); the runner says so in
-one line.  Artifacts land in the working directory.
+Artifacts land in the working directory.
 
 ``--smoke`` runs the seven drill twins of ``run.py --smoke``, in its
 order:
@@ -118,14 +120,9 @@ def smoke(tmpdir: str, device: Any = None,
     return out
 
 
-#: the one section of ``run.py``'s full mode the port does not run yet
-E7_LINE = ("E7 (bench_dryrun.py, the dry run and roofline) is not run: it "
-           "waits for the port's launch/dryrun.py (ROADMAP §1 item 3)")
-
-
 def full(repeats: int = 3, device: Any = None) -> dict:
-    """``run.py``'s full mode, in its order, but E7 (see the module
-    docstring).  Returns each section's result and seconds."""
+    """``run.py``'s full mode, in its order (see the module docstring).
+    Returns each section's result and seconds."""
     out: dict = {"seconds": {}}
 
     def section(name: str, fn):
@@ -152,7 +149,7 @@ def full(repeats: int = 3, device: Any = None) -> dict:
     section("E5", lambda: _sibling("torch_bench_ckpt").main(device=device))
     section("E6", lambda: _sibling("torch_bench_kernels").main(
         ["--device", str(device or "cuda")]))
-    print(E7_LINE)
+    section("E7", lambda: _sibling("torch_bench_dryrun").main())
     return out
 
 

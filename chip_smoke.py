@@ -141,9 +141,14 @@ Phases, in order (any failure exits non-zero, before the result line):
                one batch: loss and grad_norm within rtol 1e-5, params
                within 1e-4 x lr x max|g| plus one f32 ulp of the param;
                one real leaf of each placement kind round-trips
-               ``distribute_tensor`` bit-equal; the step's median seconds.
-               The nine kernels must launch 0 times.  Freed after.  One
-               ``{"prodstep": {...}}`` line;
+               ``distribute_tensor`` bit-equal; the step's median seconds;
+               its roofline (``repro_torch.roofline.count_step`` on
+               ``meta``): TF32 off, the counted flops over the card's f32
+               peak at most the measured step, the dry run's argument
+               bytes equal to the real state and batch, its temp beside
+               the timed step's measured peak.  The nine kernels must
+               launch 0 times.  Freed after.  One ``{"prodstep": {...}}``
+               line;
   calibration  the device section of the checkpoint calibration
                (``benchmarks/torch_bench_ckpt.py`` ``bench_device_delta``)
                on a fresh 2-layer yi-6b-width state: the fused encodes
@@ -1180,9 +1185,15 @@ def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
           leaf of each placement kind round-trips ``distribute_tensor``
           -> ``full_tensor`` bit-equal.
 
-    Then the step's seconds (median of ``PROD_TIMED`` steps).  Everything
-    it allocated is freed after.  ``cfg``/``batch``/``seq`` shrink it for
-    a CPU rehearsal (gloo in place of nccl)."""
+    Then the step's seconds (median of ``PROD_TIMED`` steps) and its
+    roofline: the step's flops counted by ``roofline.count_step`` on
+    ``meta`` tensors over the card's float32 peak (TF32 must be off: the
+    products run on the CUDA cores) must not exceed the measured step;
+    the dry run's ``arg_gb_per_dev`` on this (1, 1) mesh must equal the
+    bytes of the real state and batch; its ``temp_gb_per_dev`` is logged
+    beside the measured peak of the timed step.  Everything it allocated
+    is freed after.  ``cfg``/``batch``/``seq`` shrink it for a CPU
+    rehearsal (gloo in place of nccl; no card, so no rate check)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
@@ -1244,6 +1255,8 @@ def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
         state = zoo.init_state(cfg, opt, gen, dev)
         # step 1: past the warmup, whose learning rate at step 0 is 0
         state["step"] = torch.ones((), dtype=torch.int32, device=dev)
+        held_bytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(state))
         real = dict(tree_flatten_with_names(state))
         kinds: dict = {}
         for n in names:
@@ -1262,6 +1275,7 @@ def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
         labels = torch.randint(0, cfg.vocab_size, (batch, seq),
                                generator=gen, device=dev, dtype=torch.int32)
         data = {"tokens": tokens, "labels": labels}
+        held_bytes += tokens.numel() * 4 + labels.numel() * 4
 
         torch.use_deterministic_algorithms(True)
         # (a) remat: one step per policy from the same state
@@ -1345,15 +1359,25 @@ def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
 
         # the production step's time: accum microbatches, remat minimal
         times = []
-        for _ in range(PROD_TIMED):
+        for i in range(PROD_TIMED):
+            gc.collect()
             sync()
+            if cuda and i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
             t0 = time.monotonic()
             state, m = step(state, data)
             sync()
             times.append(time.monotonic() - t0)
+            if cuda and i == 0:
+                out["timed_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                        - before) / 1e9
             check(math.isfinite(float(m["loss"])), "prodstep: loss not finite")
         out["step_s"] = sorted(times)[len(times) // 2]
         out["step_times_s"] = times
+        out["roofline"] = prodstep_roofline(
+            cfg, shape, mesh, rules, opt, step, accum, held_bytes,
+            out["step_s"], torch.cuda.get_device_name(dev) if cuda else None)
         del state, data, step, m
     finally:
         torch.use_deterministic_algorithms(was_det)
@@ -1362,6 +1386,53 @@ def prodstep_phase(dev, cfg=None, batch: int = PROD_BATCH,
         if cuda:
             torch.cuda.empty_cache()
     out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+def prodstep_roofline(cfg, shape, mesh, rules, opt, step, accum: int,
+                      held_bytes: int, step_s: float,
+                      card: "str | None") -> dict:
+    """The roofline of the prodstep phase's timed step, counted on
+    ``meta`` tensors (a few seconds of host time): its flops over the
+    card's float32 peak must not exceed the measured ``step_s``, and the
+    dry run's argument bytes must equal the real state and batch."""
+    import torch
+
+    from repro_torch import roofline
+    from repro_torch.kernels.rates import card_rates
+    from repro_torch.launch import dryrun
+    from repro_torch.models import zoo
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "prodstep: TF32 is on, so the float32 peak is not the bound")
+    t0 = time.monotonic()
+    args = (zoo.state_specs(cfg, opt), zoo.input_specs(cfg, shape))
+    costs = roofline.count_step(step, *args, n_dev=1)
+    cell = dryrun.Cell(cfg, shape, mesh, rules, step, args,
+                       {"accum": accum}, None, 0)
+    rec = dryrun.cell_record(cell, dryrun.count_full(cell))
+    out = {"count_s": time.monotonic() - t0, "flops": costs.flops,
+           "hbm_bytes": costs.bytes,
+           "arg_gb_per_dev": rec["arg_gb_per_dev"],
+           "temp_gb_per_dev": rec["temp_gb_per_dev"],
+           "output_gb_per_dev": rec["output_gb_per_dev"],
+           "held_gb": held_bytes / 2**30}
+    check(rec["hlo_flops_per_dev"] == costs.flops,
+          "prodstep: the dry run's flops differ from count_step's")
+    check(rec["arg_gb_per_dev"] * 2**30 == held_bytes,
+          f"prodstep: dry-run arg bytes {rec['arg_gb_per_dev'] * 2**30:.0f}"
+          f" != the real state and batch {held_bytes}")
+    if card is not None:
+        rates = card_rates(card)
+        bound = max(costs.flops / rates.fp32, costs.bytes / rates.hbm)
+        out.update(fp32_peak=rates.fp32, hbm_rate=rates.hbm,
+                   flops_bound_s=costs.flops / rates.fp32,
+                   bytes_bound_s=costs.bytes / rates.hbm, bound_s=bound,
+                   bound_fraction=costs.flops / rates.fp32 / step_s)
+        check(costs.flops / rates.fp32 <= step_s,
+              f"prodstep: counted flops over the f32 peak "
+              f"{costs.flops / rates.fp32:.3f} s exceed the measured step "
+              f"{step_s:.3f} s")
     return out
 
 
@@ -1981,6 +2052,7 @@ def main() -> int:
     for f in families:
         prod_launches.update(f.launch_counts())
     prod["launches"] = prod_launches
+    roof = prod["roofline"]
     log(f"prodstep: {prod['arch']} widths, {prod['layers']} layers, "
         f"{prod['params']:,} params, {prod['dtype']}, batch "
         f"{prod['batch']} x {prod['seq']}, mesh {prod['mesh']}, accum "
@@ -1996,7 +2068,15 @@ def main() -> int:
         f"the gate); {len(prod['placement_kinds'])} placement "
         f"kinds round-tripped over {prod['state_leaves']} leaves; step "
         f"{prod['step_s']:.3f} s (median of {len(prod['step_times_s'])}); "
-        f"phase {prod['phase_s']:.1f} s; launches of the nine kernels "
+        f"roofline: {roof['flops']:.4e} flops counted on meta in "
+        f"{roof['count_s']:.1f} s, over the f32 peak "
+        f"{roof.get('flops_bound_s', math.nan):.3f} s = "
+        f"{roof.get('bound_fraction', math.nan):.3f} of the step; dry-run "
+        f"arg {roof['arg_gb_per_dev']:.3f} GB = the state and batch held, "
+        f"temp {roof['temp_gb_per_dev']:.3f} GB + output "
+        f"{roof['output_gb_per_dev']:.3f} GB against the timed step's "
+        f"measured peak over held {prod.get('timed_peak_gb', math.nan):.3f}"
+        f" GB; phase {prod['phase_s']:.1f} s; launches of the nine kernels "
         f"{prod_launches}; card {smi}")
     print(json.dumps({"prodstep": prod}))
     check(not any(prod_launches.values()),

@@ -165,6 +165,18 @@ class ModelConfig:
             total += self.num_decoder_layers * dec_layer + d
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts active)."""
+        if self.family != "moe":
+            return self.param_count()
+        assert self.moe is not None
+        full = self.param_count()
+        d = self.d_model
+        gated = self.activation in ("swiglu", "geglu")
+        per_expert = d * self.moe.d_ff_expert * (3 if gated else 2)
+        inactive = self.num_layers * (self.moe.num_experts - self.moe.top_k) * per_expert
+        return int(full - inactive)
+
 
 # ---------------------------------------------------------------------------
 # Shapes (assigned input-shape set)

@@ -1,14 +1,18 @@
 """Serving launcher of the port: the batched server at an arch's reduced
-config, on the CUDA device unless ``--device`` names another.
+config, on the CUDA device unless ``--device`` names another, or the
+production-mesh decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --local \
         [--device cpu]
 
-Only the ``--local`` path of the JAX package's ``launch/serve.py`` is
-ported: without it the reference compiles the sharded decode step for a
-production mesh.  The sharding rules and meshes are ported
-(``sharding.py``, ``launch/mesh.py``); that path waits for the port's
-roofline and dry run (ROADMAP section 1, item 3).
+    # the sharded decode step on the production mesh, one rank per GPU:
+    torchrun ... -m repro_torch.launch.serve --arch yi-6b \
+        --shape decode_32k [--multi-pod]
+
+Without ``--local`` the step of ``--shape`` is built as the dry run
+builds it, over the caller's process group of 256 (or 512) ranks, and
+its dry-run record is printed (``launch.dryrun.production``); with no
+group of the mesh's size it exits with the mesh's own error.
 """
 from __future__ import annotations
 
@@ -19,16 +23,17 @@ from typing import Optional, Sequence
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--local", action="store_true",
                     help="the batched server at the arch's reduced config")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the server (default: cuda)")
+                    help="torch device of the server, or the production "
+                         "mesh's device type (default: cuda)")
     args = ap.parse_args(argv)
     if not args.local:
-        ap.error("only --local runs are ported: the production-mesh decode "
-                 "step waits for the port's roofline and dry run "
-                 "(roofline.py and launch/dryrun.py, ROADMAP section 1, "
-                 "item 3)")
+        from repro_torch.launch.dryrun import production
+        return production(args.arch, args.shape, args.multi_pod, args.device)
 
     import numpy as np
     import torch

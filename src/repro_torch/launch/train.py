@@ -1,16 +1,23 @@
 """Training launcher of the port: the live resilient trainer, optionally
-supervised by a ``KhaosRuntime``.
+supervised by a ``KhaosRuntime``, or the production-mesh train step.
 
     # the trainer at the SMOKE config of an arch, on the CUDA device:
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --local \
         --duration 60 [--khaos] [--device cpu]
 
-Only the ``--local`` path of the JAX package's ``launch/train.py`` is
-ported.  Its production path (``--shape``, ``--multi-pod``) compiles the
-sharded step against the dry run's plans; the sharding rules, meshes and
-the accumulated train step it builds on are ported (``sharding.py``,
-``launch/mesh.py``), the roofline and the dry run are not yet (ROADMAP
-section 1, item 3).
+    # the sharded step on the production mesh, one rank per GPU:
+    torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+        --arch yi-6b --shape train_4k [--multi-pod]
+
+Without ``--local`` the step is built exactly as the dry run builds it
+(``repro_torch.launch.dryrun.build_cell``: the arch's published config,
+the default plan, ``ShardingRules`` on ``make_production_mesh``) over the
+process group the caller has initialised — under ``torchrun`` the
+launcher initialises it from the environment, 256 ranks for the (16, 16)
+mesh or 512 for ``--multi-pod`` — and its dry-run record (memory per
+device and roofline terms) is printed, as the JAX package prints its
+compiled step's ``memory_analysis()``.  With no group of the mesh's size
+it exits with the mesh's own error; the mesh is never shrunk.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Optional, Sequence
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--local", action="store_true",
                     help="the live trainer at the arch's reduced config")
     ap.add_argument("--duration", type=float, default=60.0)
@@ -33,12 +42,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="supervise with a KhaosRuntime (prior-fitted QoS "
                          "models) through TrainerJobHandle")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the trainer (default: cuda)")
+                    help="torch device of the trainer, or the production "
+                         "mesh's device type (default: cuda)")
     args = ap.parse_args(argv)
     if not args.local:
-        ap.error("only --local runs are ported: the production path waits "
-                 "for the port's roofline and dry run (roofline.py and "
-                 "launch/dryrun.py, ROADMAP section 1, item 3)")
+        from repro_torch.launch.dryrun import production
+        return production(args.arch, args.shape, args.multi_pod, args.device)
 
     from repro_torch.config import KhaosConfig, OptimizerConfig
     from repro_torch.configs import get_smoke_config

@@ -99,6 +99,16 @@ def _index_tree(tree: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree: Params) -> list:
+    """The per-index trees of a stacked tree, one ``unbind`` per leaf.  Its
+    backward stacks the layers' gradients once; indexing the stack per
+    layer would make each layer's backward fill a zero gradient of the
+    whole stack, a cost that grows with the square of the depth."""
+    cols = [torch.unbind(a) for a in tree_leaves(tree)]
+    treedef = tree_structure(tree)
+    return [tree_unflatten(treedef, list(c)) for c in zip(*cols)]
+
+
 def _n_stacked(tree: Params) -> int:
     return tree_leaves(tree)[0].shape[0]
 
@@ -229,8 +239,8 @@ def _run_uniform_stack(params, cfg: ModelConfig, x, positions, *,
                           window=window, ann=ann), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for i in range(_n_stacked(params["layers"])):
-        x, aux, ys = body(_index_tree(params["layers"], i), x, aux)
+    for lp in _unstack(params["layers"]):
+        x, aux, ys = body(lp, x, aux)
         caches.append(ys)
     return x, aux, (_stack_caches(caches) if collect_kv else None)
 
@@ -273,9 +283,9 @@ def _hybrid_group(gp, x, *, cfg: ModelConfig, positions, collect_kv: bool,
     """One (recurrent x n_rec, attention) group of the hybrid stack."""
     x = ann.constrain(x, "hidden")
     recs = []
-    for i in range(_hybrid_layout(cfg)[0]):
-        x, st = _hybrid_sublayer(_index_tree(gp["rec"], i), x, cfg,
-                                 positions, "recurrent", collect_kv, ann)
+    for lp in _unstack(gp["rec"]):
+        x, st = _hybrid_sublayer(lp, x, cfg, positions, "recurrent",
+                                 collect_kv, ann)
         recs.append(st)
     x, attn_st = _hybrid_sublayer(gp["attn"], x, cfg, positions,
                                   "attention", collect_kv, ann)
@@ -289,14 +299,14 @@ def _run_hybrid_stack(params, cfg: ModelConfig, x, positions, *,
     body = _remat(partial(_hybrid_group, cfg=cfg, positions=positions,
                           collect_kv=collect_kv, ann=ann), cfg)
     group_caches = []
-    for g in range(_n_stacked(params["groups"])):
-        x, ys = body(_index_tree(params["groups"], g), x)
+    for gp in _unstack(params["groups"]):
+        x, ys = body(gp, x)
         group_caches.append(ys)
     tail_caches = []
     if "tail" in params:
-        for i in range(_n_stacked(params["tail"])):
-            x, st = _hybrid_sublayer(_index_tree(params["tail"], i), x, cfg,
-                                     positions, "recurrent", collect_kv, ann)
+        for lp in _unstack(params["tail"]):
+            x, st = _hybrid_sublayer(lp, x, cfg, positions, "recurrent",
+                                     collect_kv, ann)
             tail_caches.append(st)
     caches = None
     if collect_kv:
@@ -352,8 +362,8 @@ def _run_audio_stack(params, cfg: ModelConfig, frames, dec_x, dec_positions,
     enc_body = _remat(partial(_audio_enc_layer, cfg=cfg,
                               positions=enc_positions, ann=ann), cfg)
     x = frames
-    for i in range(_n_stacked(params["enc_layers"])):
-        x = enc_body(_index_tree(params["enc_layers"], i), x)
+    for lp in _unstack(params["enc_layers"]):
+        x = enc_body(lp, x)
     enc_out = L.apply_norm(params["enc_norm"], x, cfg)
 
     dec_body = _remat(partial(_audio_dec_layer, cfg=cfg,
@@ -361,8 +371,8 @@ def _run_audio_stack(params, cfg: ModelConfig, frames, dec_x, dec_positions,
                               collect_kv=collect_kv, ann=ann), cfg)
     x = dec_x
     caches = []
-    for i in range(_n_stacked(params["dec_layers"])):
-        x, ys = dec_body(_index_tree(params["dec_layers"], i), x, enc_out)
+    for lp in _unstack(params["dec_layers"]):
+        x, ys = dec_body(lp, x, enc_out)
         caches.append(ys)
     return x, (_stack_caches(caches) if collect_kv else None)
 
@@ -561,7 +571,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     that mean (ce + aux) and ``aux`` = 0, as in the reference.  The new
     state is built of NEW tensors; nothing in ``state`` is modified,
     which the checkpoint plane's deferred snapshot and device delta base
-    rely on."""
+    rely on.
+
+    ``train_step.parts`` is ``(begin, micro, finish)``, the accumulated
+    step in pieces, so that the dry run (``roofline.trace_accumulated``)
+    can count one microbatch in place of ``accum``.  Their contract:
+    ``begin(params, batch) -> (mbs, gsum, loss)`` splits the batch and
+    makes the zero sums; ``micro(params, mb, gsum, loss) -> (gsum,
+    loss)`` adds one microbatch, holding nothing of it after it returns;
+    ``finish(state, gsum, loss) -> (new_state, metrics)`` empties
+    ``gsum`` and clips before the update, so neither the sums nor the
+    unclipped gradients live through it.  ``begin``, ``accum`` times
+    ``micro``, then ``finish`` IS ``train_step`` for ``accum > 1``;
+    ``tests/test_torch_dryrun.py`` holds its peak to the one-body step's."""
     loss_fn = make_loss_fn(cfg, ann=ann)
     adt = L.dtype_of(accum_dtype)
 
@@ -574,32 +596,27 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
 
-    def train_step(state, batch):
+    def begin(params, batch):
+        """The microbatches, the zero gradient sums and the loss sum."""
+        lead = batch.get("tokens", batch.get("frames"))
+        bsz = lead.shape[0]
+        mbs = {k: _split_micro(v, accum, bsz) for k, v in batch.items()}
+        gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
+                for p in tree_leaves(params)]
+        loss = torch.zeros((), dtype=torch.float32, device=lead.device)
+        return mbs, gsum, loss
+
+    def micro(params, mb, gsum, loss):
+        """One microbatch's loss and gradient, added to the sums."""
+        l, _, g = grad_fn(params, mb)
+        return [a + b.to(adt) for a, b in zip(gsum, tree_leaves(g))], \
+            loss + l
+
+    def update(state, grads, gnorm, loss, metrics):
+        """The optimizer update with the clipped gradients, and the step's
+        metrics.  The callers clip: rebinding their ``grads`` frees the
+        unclipped ones before the update."""
         params = state["params"]
-        if accum <= 1:
-            loss, metrics, grads = grad_fn(params, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            lead = batch.get("tokens", batch.get("frames"))
-            bsz = lead.shape[0]
-            mbs = {k: _split_micro(v, accum, bsz) for k, v in batch.items()}
-            gsum = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                    for p in tree_leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=lead.device)
-            for i in range(accum):
-                l, _, g = grad_fn(params, {k: v[i] for k, v in mbs.items()})
-                gsum = [a + b.to(adt) for a, b in zip(gsum, tree_leaves(g))]
-                loss = loss + l
-                del g
-            grads = tree_unflatten(tree_structure(params),
-                                   [(g / accum).to(torch.float32)
-                                    for g in gsum])
-            del gsum
-            loss = loss / accum
-            metrics = {"ce": loss,
-                       "aux": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
         with torch.no_grad():
             new_params, new_opt = optimizer.update(
                 grads, state["opt"], params, state["step"])
@@ -608,6 +625,32 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         out_metrics = {"loss": loss, "grad_norm": gnorm.detach(), **metrics}
         return new_state, out_metrics
 
+    def finish(state, gsum, loss):
+        """The sums' mean in float32, then the update; ``gsum`` is emptied
+        so the sums are freed before the update."""
+        grads = tree_unflatten(tree_structure(state["params"]),
+                               [(g / accum).to(torch.float32) for g in gsum])
+        gsum.clear()
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+        loss = loss / accum
+        return update(state, grads, gnorm, loss,
+                      {"ce": loss, "aux": torch.zeros(
+                          (), dtype=torch.float32, device=loss.device)})
+
+    def train_step(state, batch):
+        params = state["params"]
+        if accum <= 1:
+            loss, metrics, grads = grad_fn(params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            return update(state, grads, gnorm, loss, metrics)
+        mbs, gsum, loss = begin(params, batch)
+        for i in range(accum):
+            gsum, loss = micro(params, {k: v[i] for k, v in mbs.items()},
+                               gsum, loss)
+        return finish(state, gsum, loss)
+
+    train_step.parts = (begin, micro, finish)
     return train_step
 
 

@@ -14,6 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 #: the port's benchmarks: they import the port, never the JAX package
 PORT_BENCHES = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+#: the port's twins of the examples
+PORT_EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_modules() -> list[str]:
@@ -40,7 +42,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "configs.internlm2_20b", "configs.olmoe_1b_7b",
                 "configs.qwen2_5_14b", "configs.qwen2_vl_7b",
                 "configs.whisper_small", "sharding", "launch.mesh",
-                "optim.compression"):
+                "optim.compression", "roofline", "launch.dryrun"):
         assert f"repro_torch.{mod}" in mods
     for family in ("ckpt_delta", "flash_attention", "rglru", "rwkv6"):
         for part in ("", ".kernel", ".ops", ".ref"):
@@ -48,7 +50,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     benches = [str(p) for p in PORT_BENCHES]
     for name in ("ckpt", "kernels", "runtime", "proactive", "campaign",
                  "recovery", "fleet", "replication", "serve", "tables",
-                 "khaos_training"):
+                 "khaos_training", "dryrun"):
         assert any(p.endswith(f"torch_bench_{name}.py") for p in benches)
     assert any(p.endswith("torch_run.py") for p in benches)
     assert any(p.endswith("torch_common.py") for p in benches)
@@ -82,9 +84,9 @@ def _imports(path: Path) -> list[str]:
 
 
 def test_no_port_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + PORT_BENCHES + \
+    files = sorted(PORT.rglob("*.py")) + PORT_BENCHES + PORT_EXAMPLES + \
         [ROOT / "chip_smoke.py"]
-    assert len(PORT_BENCHES) >= 1
+    assert len(PORT_BENCHES) >= 1 and len(PORT_EXAMPLES) == 6
     bad = []
     for path in files:
         for name in _imports(path):

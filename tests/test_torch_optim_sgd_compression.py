@@ -206,7 +206,13 @@ def test_compressed_psum_without_a_process_group_raises():
         compressed_psum(g, init_residual(g))
 
 
+#: each rank drops its mesh (and with it the mesh's gloo groups) before
+#: destroying the process group: a mesh left to the interpreter's exit,
+#: after ``destroy_process_group``, tore its groups down there, where a
+#: rank under load could abort ("terminate called without an active
+#: exception", SIGABRT) after its results were written
 _RANK = textwrap.dedent("""
+    import gc
     import sys
     from datetime import timedelta
     import numpy as np
@@ -227,6 +233,8 @@ _RANK = textwrap.dedent("""
     np.savez(d + f"/out{rank}.npz",
              **{"o_" + k: v.numpy() for k, v in out.items()},
              **{"n_" + k: v.numpy() for k, v in new_r.items()})
+    del mesh
+    gc.collect()
     dist.destroy_process_group()
 """)
 

@@ -1,6 +1,7 @@
 """The full mode of ``benchmarks/torch_run.py`` (``run.py`` without
 ``--smoke``): its sections in ``run.py``'s order, with stubs; ``--quick``;
-exit code 1 on a failed section; the E7 line; and, in a subprocess, the
+exit code 1 on a failed section; E7's twin in ``run.py``'s place; and,
+in a subprocess, the
 full mode's modules and a reduced run of its sections load neither
 ``jax`` nor the JAX package ``repro``."""
 import importlib.util
@@ -24,7 +25,8 @@ ORDER = [("torch_bench_tables", "bench_iot_vehicles"),
          ("torch_bench_fleet", "main"),
          ("torch_bench_khaos_training", "main"),
          ("torch_bench_ckpt", "main"),
-         ("torch_bench_kernels", "main")]
+         ("torch_bench_kernels", "main"),
+         ("torch_bench_dryrun", "main")]
 
 
 def _runner():
@@ -63,8 +65,8 @@ def test_full_mode_runs_run_py_sections_in_order(monkeypatch, capsys):
     e4 = kw["torch_bench_recovery"]
     assert e4["proactive"] == {"section": ("torch_bench_proactive", "main")}
     assert e4["device_sec"] == {"section": ("torch_bench_campaign", "main")}
-    assert all(c[3].get("device") == "cpu" for c in calls[:-1])
-    assert calls[-1][2] == (["--device", "cpu"],)
+    assert all(c[3].get("device") == "cpu" for c in calls[:-2])
+    assert calls[-2][2] == (["--device", "cpu"],)
     out = capsys.readouterr().out
     assert "full run done in" in out
 
@@ -87,13 +89,18 @@ def test_a_failing_section_exits_1(monkeypatch, capsys):
 
 
 def test_the_e7_line_is_printed(monkeypatch, capsys):
+    """E7 is no longer a line saying it waits: the full mode calls E7's
+    twin where ``run.py`` calls ``bench_dryrun.main()``, last, after E6,
+    and times it as a section."""
     mod, calls = _stubbed(monkeypatch)
     mod.main(["--quick"])
     lines = capsys.readouterr().out.splitlines()
-    e7 = [ln for ln in lines if ln.startswith("E7 ")]
-    assert e7 == [mod.E7_LINE]
-    assert "launch/dryrun.py" in e7[0] and "ROADMAP" in e7[0]
-    assert not any("dryrun" in n for n, _, _, _ in calls)
+    assert not any(ln.startswith("E7 ") for ln in lines)
+    assert not hasattr(mod, "E7_LINE")
+    assert calls[-1] == ("torch_bench_dryrun", "main", (), {})
+    assert [n for n, _, _, _ in calls].index("torch_bench_dryrun") == \
+        len(ORDER) - 1
+    assert "E7" in lines[-1] and "E6" in lines[-1]
 
 
 def test_full_mode_loads_neither_jax_nor_repro(tmp_path):

@@ -61,8 +61,9 @@ def test_runner_exits_1_on_a_failed_drill(monkeypatch, capsys):
 
 
 def test_runner_refuses_the_unported_full_mode(monkeypatch, capsys):
-    """The full mode runs every section but E7, which waits for the port's
-    dry run: the runner says so and loads no dry-run module."""
+    """The full mode no longer leaves a section out: E7 (the dry run) is
+    ported, so the runner loads E7's twin and runs it last, and no line
+    says a section waits for the port."""
     mod = _runner()
     loaded = []
 
@@ -75,8 +76,10 @@ def test_runner_refuses_the_unported_full_mode(monkeypatch, capsys):
     monkeypatch.setattr(mod, "_sibling", Fake)
     monkeypatch.setattr(sys, "argv", ["torch_run.py", "--quick"])
     mod.main()
-    assert mod.E7_LINE in capsys.readouterr().out.splitlines()
-    assert loaded and not any("dryrun" in n for n in loaded)
+    out = capsys.readouterr().out.splitlines()
+    assert not hasattr(mod, "E7_LINE")
+    assert not any("waits for" in ln for ln in out)
+    assert loaded[-1] == "torch_bench_dryrun"
 
 
 def test_caller_section_replaces_the_campaign_drill(monkeypatch, tmp_path):
