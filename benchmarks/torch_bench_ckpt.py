@@ -5,9 +5,12 @@ artifact the Khaos cost model loads — the twin of ``bench_ckpt.py``.
 
 It measures, on the port's checkpoint plane:
 
-  * ``bench_checkpoint``: the monolithic D2H copy of a train state, a full
-    sync write, the blocking part of an async write, a restore, and the
-    written fractions of a lossless and an int8 host-encoded delta;
+  * ``bench_checkpoint``: as the JAX package's does, through the older
+    store-bound classes — the monolithic D2H copy of a train state
+    (``snapshot_to_host``), a full sync write, the blocking part of an
+    ``AsyncCheckpointer`` write, a restore, and the written fractions of a
+    lossless and an int8 host-encoded delta (``IncrementalCheckpointer``'s
+    byte counters);
   * ``bench_plans``: whole-plan accounting over a drifting state (bytes
     written and on the link, write and blocking seconds, encode CPU);
   * ``bench_device_delta``: the ``device`` section — per codec, the pack of
@@ -21,8 +24,10 @@ It measures, on the port's checkpoint plane:
 the JAX package's ``bench_ckpt.py`` writes, so either package's
 ``SimCostModel.from_calibration`` loads it), ``validate_calibration``
 checks it and ``emit_calibration`` writes it; ``main`` writes
-``BENCH_ckpt_torch.json`` and ends with ``bench_calibrated_optimize``,
-the plan optimizer priced by the measured cost model.  ``smoke(tmpdir)``
+``BENCH_ckpt_torch.json``, asserts ``bench_optimize_plan`` (the plan
+optimizer must leave the full-sync baseline) and ends with
+``bench_calibrated_optimize``, the optimizer priced by the measured cost
+model.  ``smoke(tmpdir)``
 runs the whole flow on tiny states and checks the artifact loads.  The
 states live on the CUDA device unless ``--device`` names another (the CPU
 runs the kernels' plain versions).
@@ -40,9 +45,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import (CheckpointManager, CheckpointPlan,
-                                    CheckpointStore, DeltaLeafSource,
-                                    DeviceDeltaBase)
+from repro_torch.checkpoint import (AsyncCheckpointer, CheckpointManager,
+                                    CheckpointPlan, CheckpointStore,
+                                    DeltaLeafSource, DeviceDeltaBase,
+                                    IncrementalCheckpointer,
+                                    snapshot_to_host)
 from repro_torch.checkpoint.pipeline import HostLanding
 from repro_torch.config import OptimizerConfig, replace
 from repro_torch.configs import get_smoke_config
@@ -99,9 +106,11 @@ def _pulled(calls, planes: list, landing: HostLanding, pin: bool) -> float:
     return time.monotonic() - t0
 
 
-def bench_checkpoint(tmpdir: str, scale: int = 4, device: Any = None):
+def bench_checkpoint(tmpdir: str, scale: int = 4, device: Any = None,
+                     codec: str = "auto"):
     """Single-mechanism microbenchmarks; returns (rows, measurements) where
-    measurements feed the calibration artifact."""
+    measurements feed the calibration artifact.  ``codec`` names the
+    incremental deltas' compressor."""
     shutil.rmtree(tmpdir, ignore_errors=True)
     dev = resolve_device(device)
     state = _mk_state(scale, dev)
@@ -112,7 +121,7 @@ def bench_checkpoint(tmpdir: str, scale: int = 4, device: Any = None):
     meas = {"state_bytes": nbytes}
 
     t0 = time.monotonic()
-    zoo.state_to_numpy(state)
+    snapshot_to_host(state)
     meas["snapshot_full_copy_s"] = time.monotonic() - t0
     rows.append(("ckpt_snapshot_full_copy", meas["snapshot_full_copy_s"] * 1e6,
                  "monolithic D2H deep copy (pre-pipeline blocking cost)"))
@@ -125,12 +134,13 @@ def bench_checkpoint(tmpdir: str, scale: int = 4, device: Any = None):
     rows.append(("ckpt_sync_save", sync_s * 1e6,
                  f"{nbytes/sync_s/2**20:.0f} MiB/s"))
 
-    amgr = CheckpointManager(tmpdir + "/async",
-                             CheckpointPlan(sync=False, num_shards=4,
-                                            replication_factor=0),
-                             device=dev)
-    block_s = amgr.save(1, state).blocking_s    # the chunked snapshot only
-    amgr.wait()
+    ac = AsyncCheckpointer(CheckpointStore(tmpdir + "/async", num_shards=4))
+    t0 = time.monotonic()
+    ac.save(1, state)
+    block_s = time.monotonic() - t0     # only the chunked snapshot blocks
+    ac.wait()
+    if ac.errors:
+        raise RuntimeError(f"async checkpoint write failed: {ac.errors}")
     meas["async_blocking_s"] = block_s
     rows.append(("ckpt_async_block", block_s * 1e6,
                  f"{block_s/sync_s:.3f}x of sync"))
@@ -143,18 +153,15 @@ def bench_checkpoint(tmpdir: str, scale: int = 4, device: Any = None):
                  f"{nbytes/restore_s/2**20:.0f} MiB/s"))
 
     for mode in ("lossless", "int8"):
-        mgr = CheckpointManager(
-            tmpdir + f"/inc_{mode}",
-            CheckpointPlan(mode="incremental", full_every=8, delta_codec=mode,
-                           num_shards=2, replication_factor=0),
-            device=dev)
-        mgr.save(0, state)
+        inc = IncrementalCheckpointer(CheckpointStore(tmpdir + f"/inc_{mode}",
+                                                      num_shards=2),
+                                      full_every=8, mode=mode, codec=codec)
+        inc.save(0, state)
         bumped = _bump(state)
         t0 = time.monotonic()
-        mgr.save(1, bumped)
+        inc.save(1, bumped)
         dt = time.monotonic() - t0
-        by_kind = mgr.stats()["bytes_by_kind"]
-        ratio = by_kind["delta"] / max(by_kind["full"], 1)
+        ratio = inc.bytes_written_delta / max(inc.bytes_written_full, 1)
         meas[f"delta_fraction_{mode}"] = ratio
         rows.append((f"ckpt_incr_{mode}", dt * 1e6,
                      f"delta/full bytes = {ratio:.4f}"))
@@ -436,6 +443,39 @@ def emit_calibration(path: str, meas: dict, plan_stats: dict,
     return cal
 
 
+def bench_optimize_plan():
+    """The acceptance scenario of the JAX package's ``bench_ckpt.py``: with
+    latency the binding constraint, the plan optimizer must leave the
+    full-sync baseline for a cheaper mechanism at equal QoS
+    feasibility."""
+    from repro_torch.core import QoSModel, optimize_plan
+
+    rng = np.random.default_rng(0)
+    ci = rng.uniform(10, 120, 200)
+    tr = rng.uniform(1000, 4000, 200)
+    cost = SimCostModel(capacity_eps=4600.0, ckpt_duration_s=3.0,
+                        ckpt_sync_penalty=0.6)
+    m_l = QoSModel().fit(ci, tr, cost.base_latency_s + 40.0 / ci + tr * 1e-5)
+    m_r = QoSModel().fit(ci, tr, 80.0 + 1.2 * ci + 0.01 * tr)
+    res = optimize_plan(m_l, m_r, tr_avg=2500.0, l_const=1.0, r_const=240.0,
+                        p=1.0, ci_min=10, ci_max=120, cost=cost)
+    print("\n=== Plan optimization (latency-bound scenario) ===")
+    print(f"{'variant':16s} {'feasible':>8s} {'ci':>6s} {'q_l':>6s} "
+          f"{'q_r':>6s} {'objective':>9s} {'overhead':>8s}")
+    for c in res.candidates:
+        ci_s = f"{c.ci:.1f}" if c.ci is not None else "-"
+        print(f"{c.plan.name:16s} {str(c.feasible):>8s} {ci_s:>6s} "
+              f"{c.q_l:>6.3f} {c.q_r:>6.3f} {c.objective:>9.3f} "
+              f"{c.overhead:>8.4f}")
+    b = res.baseline
+    print(f"chosen: {res.plan.name} @ CI={res.ci:.1f}s "
+          f"(overhead {res.overhead:.4f}) vs baseline {b.plan.name} "
+          f"(overhead {b.overhead:.4f})")
+    assert res.plan.name != b.plan.name and res.overhead < b.overhead, \
+        "optimizer failed to beat the full-sync baseline"
+    return res
+
+
 def bench_calibrated_optimize(cal: dict):
     """The optimizer scenario of the JAX package's ``bench_ckpt.py`` with
     the MEASURED cost model — the end of the calibration loop.  With the
@@ -485,6 +525,7 @@ def main(out: str = "BENCH_ckpt_torch.json", device: Any = None,
         assert e["encode_s"] < cal["full_write_s"], \
             f"fused {codec} encode {e['encode_s']:.4f}s not under the " \
             f"host full write {cal['full_write_s']:.4f}s"
+    bench_optimize_plan()
     bench_calibrated_optimize(cal)
     return cal
 

@@ -163,7 +163,14 @@ Phases, in order (any failure exits non-zero, before the result line):
   artifact     the ``bench_ckpt/3`` calibration artifact: the host figures
                from the lossless half's own saves and restore, the rest
                from the bench at its own scale, loaded by the port's
-               ``SimCostModel.from_calibration``;
+               ``SimCostModel.from_calibration``; then ``legacy_check`` on
+               the bench's scale-4 state: the older store-bound
+               checkpointers (an ``IncrementalCheckpointer`` lossless
+               restore BIT-EQUAL and int8 within max|delta_group|/254, a
+               ``MultiLevelCheckpointer``'s (step, level) after task, node
+               and cluster failures, an ``AsyncCheckpointer`` save changed
+               in place before ``wait()`` that never reaches a published
+               checkpoint), one ``{"legacy": {...}}`` line;
   khaos 1-2    ``KhaosRuntime`` records the trainer stream's steady state
                and profiles the JAX package's default grid (5 failure
                points x 6 CIs) as lanes of one campaign on the card's lane
@@ -1711,6 +1718,99 @@ def calibration_artifact(run: TrainerRun, device_section: dict,
     return cal, sources
 
 
+def legacy_check(dev, directory: Path, scale: int = 4) -> dict:
+    """The older store-bound checkpointers on the calibration bench's state
+    (``scale`` 4) on the card: an ``IncrementalCheckpointer`` full + delta
+    restored bit-equal (lossless) and within max|delta_group|/254 (int8);
+    a ``MultiLevelCheckpointer`` over memory, local and remote stores
+    restoring (step 4, memory / local / remote) after task, node and
+    cluster failures, bit-equal; an ``AsyncCheckpointer`` save whose state
+    is changed in place before ``wait()``, which must end with the values
+    of ``save`` restored bit-equal or one ``SnapshotMutationError`` and no
+    manifest.  These classes encode on the host, so the card adds only the
+    device-to-host copies.  Returns what it saw and its seconds."""
+    import torch
+    from repro_torch.checkpoint import (AsyncCheckpointer, CheckpointStore,
+                                        IncrementalCheckpointer,
+                                        MultiLevelCheckpointer,
+                                        snapshot_to_host)
+    from repro_torch.utils.trees import to_tensor, tree_map
+
+    bench = _bench()
+    t0 = time.monotonic()
+    shutil.rmtree(directory, ignore_errors=True)
+    on_dev = lambda tree: {k: to_tensor(v, dev)
+                           for k, v in _flat(tree).items()}
+    state = bench._mk_state(scale, dev)
+    bumped = bench._bump(state)
+    base_host, want = _flat(snapshot_to_host(state)), \
+        _flat(snapshot_to_host(bumped))
+    out: dict = {"state_bytes": sum(a.nbytes for a in want.values())}
+    for mode in ("lossless", "int8"):
+        inc = IncrementalCheckpointer(
+            CheckpointStore(str(directory / f"inc_{mode}"), num_shards=2),
+            full_every=8, mode=mode)
+        inc.save(0, state)
+        inc.save(1, bumped)
+        restored, step = inc.restore(state)
+        check(step == 1, f"incremental {mode} restored step {step}, not 1")
+        if mode == "lossless":
+            _check_bit_equal(on_dev(restored), want,
+                             "incremental lossless restore")
+        else:
+            out["int8_margin"] = _check_int8_bound(on_dev(restored), want,
+                                                   base_host)
+        out[f"{mode}_stats"] = inc.stats()
+
+    ml = MultiLevelCheckpointer(
+        local_store=CheckpointStore(str(directory / "local"), num_shards=1),
+        remote_store=CheckpointStore(str(directory / "remote"),
+                                     num_shards=1),
+        local_every=2, remote_every=4)
+    saved = {}
+    for i in range(5):
+        si = tree_map(lambda x: x + i if x.is_floating_point() else x, state)
+        ml.save(i, si)
+        saved[i] = _flat(snapshot_to_host(si))
+    seen = []
+    for kind in ("task", "node", "cluster"):
+        if kind == "node":
+            ml.on_node_failure()
+        restored, step, level = ml.restore(state, kind)
+        seen.append([kind, step, level])
+        _check_bit_equal(on_dev(restored), saved[step],
+                         f"multilevel {kind} restore")
+    check(seen == [["task", 4, "memory"], ["node", 4, "local"],
+                   ["cluster", 4, "remote"]],
+          f"multilevel restores {seen}")
+    out["multilevel"] = seen
+
+    store = CheckpointStore(str(directory / "async"), num_shards=4)
+    ac = AsyncCheckpointer(store)
+    live = tree_map(torch.clone, state)
+    before = _flat(snapshot_to_host(live))
+    check(ac.save(2, live), "async save was skipped")
+    for leaf in _flat(live).values():
+        if leaf.is_floating_point():
+            leaf.add_(1.0)
+    ac.wait()
+    if ac.errors:
+        check(len(ac.errors) == 1
+              and "SnapshotMutationError" in ac.errors[0],
+              f"async errors {ac.errors}")
+        check(store.newest() is None,
+              "a refused async save published a manifest")
+        out["async_outcome"] = "refused (SnapshotMutationError, no manifest)"
+    else:
+        restored, _ = store.restore(state, 2)
+        _check_bit_equal(on_dev(restored), before,
+                         "async save changed in place after save()")
+        out["async_outcome"] = "pre-mutation values restored bit-equal"
+    shutil.rmtree(directory, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def khaos_cost(cal: dict, step_s: float, batch: int):
     """The cost model of the job from the calibration artifact: capacity
     ``batch / step_s`` events/s, base latency one step."""
@@ -2119,6 +2219,14 @@ def main() -> int:
         log(f"calibration artifact ({time.monotonic() - t1:.1f} s): "
             f"{json.dumps({k: v for k, v in cal.items() if k != 'plans'})}")
         log(f"calibration sources (reduced): {json.dumps(sources)}")
+        legacy = legacy_check(dev, CKPT_DIR / "legacy")
+        log(f"legacy checkpointers at the bench's scale 4 "
+            f"({legacy['state_bytes']} bytes): incremental lossless "
+            f"bit-equal, int8 worst margin {legacy['int8_margin']:.3e}; "
+            f"multilevel {legacy['multilevel']}; async save changed in "
+            f"place: {legacy['async_outcome']}; {legacy['seconds']:.2f} s; "
+            f"card {smi}")
+        print(json.dumps({"legacy": legacy}))
         n_before = len(run.ckpt_events())
         ops.reset_launch_counts()
         t1 = time.monotonic()

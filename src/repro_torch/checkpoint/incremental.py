@@ -30,6 +30,11 @@ elementwise, so chunking changes no bit).
 
 Chain layout: full_0, delta_1..delta_{k-1}, full_k, ...; restore loads the
 newest full plus its newest delta (deltas are vs the base full).
+
+The module-level ``write_delta``/``apply_delta``/``newest_delta_step``
+functions are the reusable layer: ``IncrementalCheckpointer`` (the older
+store-bound API, host encode only) and ``manager.CheckpointManager`` both
+compose them.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.store import (compress_frames, decompress_frames,
+from repro_torch.checkpoint.store import (CheckpointStore, compress_frames,
+                                          decompress_frames,
                                           fresh_tmp_dir, get_compressor,
                                           get_decompressor,
                                           publish_dir_atomic,
@@ -49,8 +55,10 @@ from repro_torch.checkpoint.store import (compress_frames, decompress_frames,
 from repro_torch.kernels.ckpt_delta import ops
 from repro_torch.kernels.ckpt_delta import ref as codec_ref
 from repro_torch.kernels.ckpt_delta.ref import GROUP
-from repro_torch.utils.trees import (resolve_device, tree_flatten_with_names,
-                                     tree_structure, tree_unflatten)
+from repro_torch.utils.trees import (resolve_device,
+                                     tree_flatten_with_names, tree_leaves,
+                                     tree_structure, tree_to_numpy,
+                                     tree_unflatten)
 
 DECODE_CHUNK = 1 << 28          # elements per flat decode chunk (1 GiB f32)
 
@@ -372,3 +380,76 @@ def apply_delta(directory: str, step: int, base_state: Any,
     out = [flat_out[name] if name in flat_out else futures[name].result()
            for name, _ in named]
     return tree_unflatten(tree_structure(base_state), out)
+
+
+class IncrementalCheckpointer:
+    """Fulls every ``full_every``-th save into ``store``, host-encoded
+    deltas against the last full in between (the older, store-bound API;
+    ``manager.CheckpointManager`` composes the same layers under a
+    ``CheckpointPlan``)."""
+
+    def __init__(self, store: CheckpointStore, full_every: int = 8,
+                 mode: str = "lossless", zstd_level: int = 3,
+                 codec: str = "auto"):
+        assert mode in ("lossless", "int8")
+        self.store = store
+        self.full_every = full_every
+        self.mode = mode
+        self.codec = codec
+        self.zstd_level = zstd_level
+        self._count = 0
+        self._base: Optional[Any] = None
+        self._base_step: Optional[int] = None
+        self.bytes_written_full = 0
+        self.bytes_written_delta = 0
+        # pre-compression bytes moved device->host: this checkpointer
+        # encodes on the host only, so every save moves the raw state —
+        # kept apart from the post-compression bytes above
+        self.bytes_on_link = 0
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, state: Any, timestamp: float = 0.0,
+             extra: Optional[dict] = None) -> str:
+        # a numpy leaf stays the caller's array, as the reference's
+        # ``np.asarray`` keeps it
+        state_np = tree_to_numpy(state)
+        self.bytes_on_link += sum(l.nbytes for l in tree_leaves(state_np))
+        if self._count % self.full_every == 0 or self._base is None:
+            path = self.store.save(step, state_np, timestamp,
+                                   {**(extra or {}), "kind": "full"})
+            self._base = state_np
+            self._base_step = step
+            self.bytes_written_full += self.store.total_bytes(step)
+        else:
+            path, nbytes, _ = write_delta(
+                self.store.directory, step, state_np, self._base,
+                self._base_step, timestamp, extra or {}, self.mode,
+                self.codec, self.zstd_level)
+            self.bytes_written_delta += nbytes
+        self._count += 1
+        return path
+
+    # ------------------------------------------------------------------
+    def newest_delta(self) -> Optional[int]:
+        return newest_delta_step(self.store.directory)
+
+    def restore(self, treedef_like: Any) -> tuple[Any, int]:
+        """Restore newest state (full + newest applicable delta).
+        Returns (state, step)."""
+        full_step = self.store.newest()
+        if full_step is None:
+            raise FileNotFoundError("no full checkpoint")
+        state, _ = self.store.restore(treedef_like, full_step)
+        dstep = self.newest_delta()
+        if dstep is None or dstep <= full_step:
+            return state, full_step
+        meta = read_delta_manifest(self.store.directory, dstep)
+        if meta is None or meta["base_step"] != full_step:
+            return state, full_step   # delta belongs to an older chain
+        return apply_delta(self.store.directory, dstep, state), dstep
+
+    def stats(self) -> dict:
+        return {"saves": self._count,
+                "bytes_written_full": self.bytes_written_full,
+                "bytes_written_delta": self.bytes_written_delta,
+                "bytes_on_link": self.bytes_on_link}

@@ -56,7 +56,7 @@ import os
 import shutil
 import time
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -115,6 +115,20 @@ class RestoreReport:
     restored_bytes: int = 0         # bytes PULLED to rebuild dead shards —
                                     # the recovery-drill gate compares this
                                     # against the full checkpoint size
+
+
+@runtime_checkable
+class Checkpointer(Protocol):
+    """The one interface all three planes (trainer, simulator cost
+    accounting, controller) talk to."""
+
+    def save(self, step: int, state: Any, timestamp: float = 0.0,
+             extra: Optional[dict] = None) -> SaveReport: ...
+
+    def restore(self, treedef_like: Any,
+                failure_kind: str = "task") -> RestoreReport: ...
+
+    def stats(self) -> dict: ...
 
 
 class CheckpointManager:
@@ -475,6 +489,23 @@ class CheckpointManager:
             # deployments re-point the store at an empty scratch dir
             shutil.rmtree(self.stores["local"].directory, ignore_errors=True)
             os.makedirs(self.stores["local"].directory, exist_ok=True)
+
+    def newest_step(self) -> Optional[int]:
+        try:
+            return self.restore_candidates()[0][0]
+        except IndexError:
+            return None
+
+    def restore_candidates(self) -> list[tuple[int, str]]:
+        """(step, level) restore options, best first (newest, then fastest)."""
+        out = []
+        if self._memory is not None:
+            out.append((self._memory[0], 2, "memory"))
+        for level in self.stores:
+            cand = self._disk_candidate(level)
+            if cand is not None:
+                out.append((cand[0], {"local": 1, "remote": 0}[level], level))
+        return [(s, l) for s, _, l in sorted(out, reverse=True)]
 
     def stats(self) -> dict:
         errors = (list(self._committer.errors)

@@ -26,6 +26,7 @@ import os
 import shutil
 import time
 import zlib
+from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -177,6 +178,19 @@ def fresh_tmp_dir(path: str) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     return tmp
+
+
+@dataclass
+class CheckpointMeta:
+    """What a checkpoint's manifest says of it."""
+    step: int
+    timestamp: float
+    num_shards: int
+    extra: dict
+
+    @property
+    def name(self) -> str:
+        return f"step_{self.step:010d}"
 
 
 def _assign_shards(sizes_by_name: list[tuple[str, int]], num_shards: int):

@@ -367,6 +367,11 @@ class CheckpointPlan:
         return max(0, min(self.replication_factor, self.num_shards - 1))
 
     @property
+    def delta_encoding(self) -> str:
+        """The older name of ``delta_codec`` (read-only)."""
+        return self.delta_codec
+
+    @property
     def name(self) -> str:
         """Short human tag, e.g. 'incr8-async-dev-int8-mlr' — used in
         Decisions, benchmark tables and event logs.  Codec/placement parts

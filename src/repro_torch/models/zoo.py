@@ -24,7 +24,6 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -32,8 +31,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.config import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.optim import Optimizer, clip_by_global_norm
-from repro_torch.utils.trees import (tensor_to_numpy, to_tensor, tree_map,
-                                     tree_structure, tree_unflatten,
+from repro_torch.utils.trees import (to_tensor, tree_map, tree_structure,
+                                     tree_to_numpy, tree_unflatten,
                                      tree_leaves)
 
 _aten = torch.ops.aten
@@ -806,5 +805,4 @@ def state_from_numpy(tree: Any, device: Any) -> Any:
 
 def state_to_numpy(state: Any) -> Any:
     """The port's tree of tensors -> a numpy tree the JAX package takes."""
-    return tree_map(lambda x: tensor_to_numpy(x)
-                    if isinstance(x, torch.Tensor) else np.asarray(x), state)
+    return tree_to_numpy(state)

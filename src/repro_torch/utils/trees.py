@@ -135,6 +135,44 @@ def to_tensor(x: Any, device: Any) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
+def _host_array(x: Any) -> np.ndarray:
+    """A leaf on the host for comparison (bfloat16 widened to float32,
+    which numpy lacks)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(x)
+
+
+def tree_count(tree: Any) -> int:
+    """Total number of array elements in a tree (1 for a leaf without a
+    shape, as the reference counts)."""
+    return int(sum(np.prod(tuple(l.shape)) if hasattr(l, "shape") else 1
+                   for l in tree_leaves(tree)))
+
+
+def tree_allclose(a: Any, b: Any, rtol: float = 1e-5,
+                  atol: float = 1e-6) -> bool:
+    """Whether two trees of tensors or arrays (on any device) have as many
+    leaves and each pair is ``np.allclose`` on the host."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    return all(np.allclose(_host_array(x), _host_array(y), rtol=rtol,
+                           atol=atol) for x, y in zip(la, lb))
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    """Zero tensors of each leaf's shape and dtype, on its device (the
+    CPU for a numpy leaf)."""
+    def zeros(leaf: Any) -> torch.Tensor:
+        if isinstance(leaf, torch.Tensor):
+            return torch.zeros_like(leaf)
+        arr = np.asarray(leaf)
+        return torch.from_numpy(np.zeros(arr.shape, arr.dtype))
+    return tree_map(zeros, tree)
+
+
 def tree_bytes(tree: Any) -> int:
     """Total bytes of a tree's tensor or array leaves (8 for any other
     leaf, as the reference counts)."""
@@ -145,6 +183,14 @@ def tree_bytes(tree: Any) -> int:
         else:
             total += 8
     return total
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of host arrays: each tensor copied off its device
+    (``tensor_to_numpy``), any other leaf through ``np.asarray`` (so a
+    numpy leaf is the caller's own array, not a copy)."""
+    return tree_map(lambda x: tensor_to_numpy(x)
+                    if isinstance(x, torch.Tensor) else np.asarray(x), tree)
 
 
 def resolve_device(device: Optional[Any]) -> torch.device:
