@@ -74,6 +74,7 @@ from repro_torch.checkpoint.policy import CheckpointPolicy
 from repro_torch.checkpoint.replication import PeerReplicatedStore
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.config import CheckpointPlan
+from repro_torch.utils import timing
 from repro_torch.utils.trees import resolve_device, tree_map
 
 
@@ -210,7 +211,14 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, timestamp: float = 0.0,
              extra: Optional[dict] = None) -> SaveReport:
-        extra = extra or {}
+        with timing.span("ckpt.save", retries_of=self.device,
+                         step=step) as span:
+            report = self._save(step, state, timestamp, extra or {}, span)
+        span.set(kind=report.kind, bytes_on_link=report.bytes_on_link)
+        return report
+
+    def _save(self, step: int, state: Any, timestamp: float, extra: dict,
+              span) -> SaveReport:
         if self._committer is not None and self._committer.busy:
             if self.plan.busy_policy == "skip":
                 self.skips += 1
@@ -221,6 +229,7 @@ class CheckpointManager:
 
         t0 = time.monotonic()
         kind = self._kind()
+        span.set(kind=kind)
         levels = [l for l, _ in self.plan.levels_due(self._count)
                   if l == "memory" or l in self.stores]
         # a real copy when the snapshot outlives this call (async write in
@@ -258,7 +267,8 @@ class CheckpointManager:
         if kind == "full":
             self._base, self._base_step = snap, step
             if self.plan.encode_placement == "device":
-                self._device_base = DeviceDeltaBase(state)
+                with timing.span("ckpt.full.base"):
+                    self._device_base = DeviceDeltaBase(state)
         base, base_step = self._base, self._base_step
         self._count += 1
 
@@ -383,6 +393,10 @@ class CheckpointManager:
 
     def restore(self, treedef_like: Any,
                 failure_kind: str = "task") -> RestoreReport:
+        with timing.span("ckpt.restore"):
+            return self._restore(treedef_like, failure_kind)
+
+    def _restore(self, treedef_like: Any, failure_kind: str) -> RestoreReport:
         self.wait()
         t0 = time.monotonic()
         allowed = allowed_levels(failure_kind,
@@ -402,9 +416,12 @@ class CheckpointManager:
         step, _, level = max(candidates)
         if level == "memory":
             mstep, snap, extra = self._memory
+            with timing.span("ckpt.restore.snapshot"):
+                leaves = snap.as_pytree()
             # deep copy so the caller can't corrupt the parked snapshot
-            state = tree_map(lambda x: np.array(x, copy=True),
-                             snap.as_pytree())
+            with timing.span("ckpt.restore.copy"):
+                state = tree_map(lambda x: np.array(x, copy=True), leaves)
+            del leaves
             report = RestoreReport(state, mstep, "memory", "memory",
                                    time.monotonic() - t0, dict(extra))
         else:

@@ -36,9 +36,11 @@ made.  A device delta's encoded payload lands in the manager's
 trigger); raw leaves land in pageable numpy arrays.
 
   * ``ChunkedHostSnapshot``: mutable host leaves (``np.ndarray``) are
-    deep-copied eagerly; tensors are held by reference (version-checked),
-    the first byte-bounded chunk is copied synchronously (the blocking
-    cost) and the rest transfer on ``transfer_pool``.
+    deep-copied eagerly; tensors are held by reference (version-checked)
+    and grouped, whole leaves at a time, into chunks of at least
+    ``chunk_bytes``; the first chunk is copied synchronously (the blocking
+    cost: a whole leaf, however large) and the rest transfer on
+    ``transfer_pool``.
   * ``LeafSource`` is the uniform interface the parallel writers consume:
     names/specs immediately, ``get(name)`` blocks until that leaf is on
     the host.
@@ -58,11 +60,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ckpt_delta.ref import GROUP
+from repro_torch.utils import timing
 from repro_torch.utils.trees import (np_dtype, tensor_to_numpy,
                                      tree_flatten_with_names, tree_structure,
                                      tree_unflatten)
 
-DEFAULT_CHUNK_BYTES = 4 << 20     # D2H granularity: first chunk = blocking
+# D2H granularity.  A device delta's payload planes are cut into chunks of
+# this many bytes.  A ChunkedHostSnapshot cuts no leaf: it groups whole
+# leaves until a chunk holds at least this many bytes, so its first chunk,
+# the one copied while the caller waits, is at least the whole first leaf
+# (yi-6b's opt/m/emb/embed: 1.05 GB).
+DEFAULT_CHUNK_BYTES = 4 << 20
 
 _pool_lock = threading.Lock()
 _transfer_pool: Optional[ThreadPoolExecutor] = None
@@ -159,14 +167,16 @@ class HostLanding:
             total += -(-nbytes // self.ALIGN) * self.ALIGN
         if self.buf is None or self.buf.nbytes < total or self.pinned != pin:
             self.release()
-            buf = np.empty(max(total, self.ALIGN), np.uint8)
-            if pin:
-                err = int(torch.cuda.cudart().cudaHostRegister(
-                    buf.ctypes.data, buf.nbytes, 0))
-                if err:
-                    raise RuntimeError(f"cudaHostRegister of {buf.nbytes} "
-                                       f"bytes failed: cudaError {err}")
-                self._unpin = weakref.finalize(self, _unregister, buf)
+            with timing.span("ckpt.landing.pin"):
+                buf = np.empty(max(total, self.ALIGN), np.uint8)
+                if pin:
+                    err = int(torch.cuda.cudart().cudaHostRegister(
+                        buf.ctypes.data, buf.nbytes, 0))
+                    if err:
+                        raise RuntimeError(f"cudaHostRegister of "
+                                           f"{buf.nbytes} bytes failed: "
+                                           f"cudaError {err}")
+                    self._unpin = weakref.finalize(self, _unregister, buf)
             self.buf, self.pinned = buf, pin
         self.generation += 1
         return [self.buf[o:o + n * np.dtype(dt).itemsize].view(dt)
@@ -242,11 +252,14 @@ class PlainLeafSource(LeafSource):
 class ChunkedHostSnapshot(LeafSource):
     """Point-in-time host snapshot with chunked, overlapped D2H transfer.
 
-    Blocking work (done in ``__init__``): deep-copy of every host leaf +
-    synchronous copy of the first tensor chunk (the device sync).
-    Everything else lands on ``transfer_pool`` and is pulled by
-    ``get``/``wait``.  ``defer_device=False`` copies every tensor before
-    returning (``CheckpointPlan.eager_snapshot``).
+    Chunks are whole leaves: tensors are grouped in order until a chunk
+    holds at least ``chunk_bytes``, and no leaf is cut, so a chunk is never
+    smaller than its largest leaf (the first one of a yi-6b state is the
+    1.05 GB ``opt/m/emb/embed``).  Blocking work (done in ``__init__``):
+    deep-copy of every host leaf + synchronous copy of the first tensor
+    chunk (the device sync).  Everything else lands on ``transfer_pool``
+    and is pulled by ``get``/``wait``.  ``defer_device=False`` copies every
+    tensor before returning (``CheckpointPlan.eager_snapshot``).
     """
 
     def __init__(self, state: Any, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
@@ -285,17 +298,25 @@ class ChunkedHostSnapshot(LeafSource):
         if cur:
             chunks.append(cur)
 
-        if chunks:      # first chunk synchronously: the device sync point
+        if not chunks:
+            return
+        with timing.span("ckpt.d2h.first"):   # the device sync point
             self._leaves.update(self._materialize(chunks[0]))
-        pool = transfer_pool()
-        for chunk in chunks[1:]:
-            fut = pool.submit(self._materialize, chunk)
-            for held in chunk:
-                self._future_of[held.name] = fut
+        with timing.span("ckpt.d2h.queue"):
+            landed = timing.pending("ckpt.d2h.background", len(chunks) - 1)
+            pool = transfer_pool()
+            for chunk in chunks[1:]:
+                fut = pool.submit(self._materialize, chunk, landed)
+                for held in chunk:
+                    self._future_of[held.name] = fut
 
     @staticmethod
-    def _materialize(chunk: list) -> dict[str, np.ndarray]:
-        return {held.name: held.to_numpy() for held in chunk}
+    def _materialize(chunk: list,
+                     landed=timing.OFF) -> dict[str, np.ndarray]:
+        try:
+            return {held.name: held.to_numpy() for held in chunk}
+        finally:
+            landed.done()
 
     def spec(self, name: str) -> tuple[tuple, np.dtype]:
         return self._spec[name]
@@ -459,9 +480,6 @@ class DeltaLeafSource(LeafSource):
                                                         flat_lossless_encode,
                                                         pack_flat)
         self.codec = codec
-        named = tree_flatten_with_names(state)
-        self.treedef = tree_structure(state)
-        self.names = [n for n, _ in named]
         self._spec: dict[str, tuple[tuple, np.dtype]] = {}
         self._raw: dict[str, Any] = {}
         self._payload: dict[str, Any] = {}       # suffix -> host np / "zero"
@@ -474,6 +492,49 @@ class DeltaLeafSource(LeafSource):
         self._landing = landing or HostLanding()
         self._generation = 0
 
+        with timing.span("ckpt.delta.pack"):
+            named = tree_flatten_with_names(state)
+            self.treedef = tree_structure(state)
+            self.names = [n for n, _ in named]
+            packed = self._hold(named, base)
+            if packed:
+                layout, base_flat = base.flat_subset([h.name for h in packed])
+                self.layout = layout
+                new_flat = pack_flat([h.check() for h in packed])
+                group_leaf = layout.group_leaf_device(base_flat.device)
+        if not packed:
+            return
+
+        if codec == "lossless":
+            with timing.span("ckpt.delta.encode"):
+                d, r, leaf_changed, leaf_rnnz = flat_lossless_encode(
+                    new_flat, base_flat, group_leaf, len(packed))
+                del new_flat
+            with timing.span("ckpt.delta.stats"):
+                changed = leaf_changed.cpu().numpy()   # the device sync
+                arrays: list[tuple[str, torch.Tensor]] = []
+                if changed.any():
+                    arrays.append(("d", d))
+                    if int(leaf_rnnz.sum()):
+                        arrays.append(("r", r))
+                    else:       # residual known all-zero: skip its D2H —
+                        self._payload["r"] = "zero"   # decoder reconstructs
+        else:
+            with timing.span("ckpt.delta.encode"):
+                q, s, leaf_changed = flat_int8_encode(
+                    new_flat, base_flat, group_leaf, len(packed))
+                del new_flat
+            with timing.span("ckpt.delta.stats"):
+                changed = leaf_changed.cpu().numpy()   # the device sync
+                arrays = [("q", q), ("s", s)] if changed.any() else []
+        self.zero_names = tuple(
+            entry.name for entry, c in zip(layout.entries, changed) if not c)
+        self._start_transfers(arrays, chunk_bytes)
+
+    def _hold(self, named: list, base: DeviceDeltaBase) -> list[HeldTensor]:
+        """Hold every tensor leaf (version-checked) and copy every host
+        leaf; the tensors the base packed, at their shapes, are returned:
+        they are encoded on the device."""
         packed: list[HeldTensor] = []
         for name, leaf in named:
             if isinstance(leaf, torch.Tensor):
@@ -493,35 +554,7 @@ class DeltaLeafSource(LeafSource):
                 self._spec[name] = (tuple(arr.shape), arr.dtype)
                 self._raw[name] = arr
                 self._account(arr.nbytes)
-
-        if not packed:
-            return
-
-        layout, base_flat = base.flat_subset([h.name for h in packed])
-        self.layout = layout
-        new_flat = pack_flat([h.check() for h in packed])
-        group_leaf = layout.group_leaf_device(base_flat.device)
-        if codec == "lossless":
-            d, r, leaf_changed, leaf_rnnz = flat_lossless_encode(
-                new_flat, base_flat, group_leaf, len(packed))
-            del new_flat
-            changed = leaf_changed.cpu().numpy()   # stats read = device sync
-            arrays: list[tuple[str, torch.Tensor]] = []
-            if changed.any():
-                arrays.append(("d", d))
-                if int(leaf_rnnz.sum()):
-                    arrays.append(("r", r))
-                else:           # residual known all-zero: skip its D2H —
-                    self._payload["r"] = "zero"   # decoder reconstructs
-        else:
-            q, s, leaf_changed = flat_int8_encode(
-                new_flat, base_flat, group_leaf, len(packed))
-            del new_flat
-            changed = leaf_changed.cpu().numpy()   # stats read = device sync
-            arrays = [("q", q), ("s", s)] if changed.any() else []
-        self.zero_names = tuple(
-            entry.name for entry, c in zip(layout.entries, changed) if not c)
-        self._start_transfers(arrays, chunk_bytes)
+        return packed
 
     def _start_transfers(self, arrays: list, chunk_bytes: int) -> None:
         """Chunk the encoded payload arrays and stream them D2H: first
@@ -543,19 +576,25 @@ class DeltaLeafSource(LeafSource):
                 tasks.append((host, dev, a, min(host.size, a + per)))
         if not tasks:
             return
-        self._pull_chunk(*tasks[0])
-        pool = transfer_pool()
-        self._chunk_futs = [pool.submit(self._pull_chunk, *task)
-                            for task in tasks[1:]]
+        with timing.span("ckpt.d2h.first"):
+            self._pull_chunk(*tasks[0])
+        with timing.span("ckpt.d2h.queue"):
+            landed = timing.pending("ckpt.d2h.background", len(tasks) - 1)
+            pool = transfer_pool()
+            self._chunk_futs = [pool.submit(self._pull_chunk, *task, landed)
+                                for task in tasks[1:]]
 
     def _pull_chunk(self, host: np.ndarray, dev: torch.Tensor, a: int,
-                    b: int) -> None:
-        view = host[a:b].view(np.int32) if host.dtype == np.uint32 \
-            else host[a:b]
-        # a synchronous copy on the default stream: ordered after the
-        # encode that produced ``dev``
-        torch.from_numpy(view).copy_(dev[a:b])
-        self._account((b - a) * host.itemsize)
+                    b: int, landed=timing.OFF) -> None:
+        try:
+            view = host[a:b].view(np.int32) if host.dtype == np.uint32 \
+                else host[a:b]
+            # a synchronous copy on the default stream: ordered after the
+            # encode that produced ``dev``
+            torch.from_numpy(view).copy_(dev[a:b])
+            self._account((b - a) * host.itemsize)
+        finally:
+            landed.done()
 
     def _account(self, nbytes: int) -> None:
         with self._link_lock:
@@ -598,7 +637,8 @@ class DeltaLeafSource(LeafSource):
             fut.result()
 
     def bytes_on_link(self) -> int:
-        self.wait()
+        with timing.span("ckpt.d2h.wait"):
+            self.wait()
         with self._link_lock:
             return self._link_bytes
 

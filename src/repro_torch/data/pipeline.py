@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.data.stream import EventStream
+from repro_torch.utils import timing
 
 
 @dataclass
@@ -77,10 +78,12 @@ class StreamingBatcher:
     def next_batch(self) -> Optional[dict]:
         if not self.ready():
             return None
-        taken = self.stream.consume(self.global_batch)
-        assert taken == self.global_batch
-        offs = np.arange(self.cursor.offset, self.cursor.offset + taken)
-        tokens = _tokens_for_events(offs, self.seq_len + 1, self.vocab, self.seed)
+        with timing.span("data.batch"):
+            taken = self.stream.consume(self.global_batch)
+            assert taken == self.global_batch
+            offs = np.arange(self.cursor.offset, self.cursor.offset + taken)
+            tokens = _tokens_for_events(offs, self.seq_len + 1, self.vocab,
+                                        self.seed)
         self.cursor.offset += taken
         return {
             "tokens": tokens[:, :-1],

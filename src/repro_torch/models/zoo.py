@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.config import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.utils import timing
 from repro_torch.utils.trees import (to_tensor, tree_map, tree_structure,
                                      tree_to_numpy, tree_unflatten,
                                      tree_leaves)
@@ -590,7 +591,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         treedef = tree_structure(params)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        with torch.enable_grad():
+        with timing.span("train.grad"), torch.enable_grad():
             loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
@@ -630,19 +631,21 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         grads = tree_unflatten(tree_structure(state["params"]),
                                [(g / accum).to(torch.float32) for g in gsum])
         gsum.clear()
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
         loss = loss / accum
-        return update(state, grads, gnorm, loss,
-                      {"ce": loss, "aux": torch.zeros(
-                          (), dtype=torch.float32, device=loss.device)})
+        with timing.span("train.optim"):
+            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            return update(state, grads, gnorm, loss,
+                          {"ce": loss, "aux": torch.zeros(
+                              (), dtype=torch.float32, device=loss.device)})
 
     def train_step(state, batch):
         params = state["params"]
         if accum <= 1:
             loss, metrics, grads = grad_fn(params, batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
-            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
-            return update(state, grads, gnorm, loss, metrics)
+            with timing.span("train.optim"):
+                grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+                return update(state, grads, gnorm, loss, metrics)
         mbs, gsum, loss = begin(params, batch)
         for i in range(accum):
             gsum, loss = micro(params, {k: v[i] for k, v in mbs.items()},

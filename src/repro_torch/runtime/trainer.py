@@ -42,6 +42,7 @@ from repro_torch.ft.failures import Degradation, InjectedFailure, jitter_phase
 from repro_torch.metrics import MetricsStore
 from repro_torch.models import zoo
 from repro_torch.optim import make_optimizer
+from repro_torch.utils import timing
 from repro_torch.utils.trees import resolve_device, to_tensor, tree_map
 
 
@@ -103,6 +104,9 @@ class ResilientTrainer:
         self.events: list[dict] = []
         self.losses: list[float] = []
         self._measured_step_s: Optional[float] = None
+        # the state's step on the host, for the trace's step numbers (read
+        # from the device only while tracing, when nothing else knows it)
+        self._step_no: Optional[int] = None
         self._unhealthy_until = -1.0       # post-restore observation grace
         # active gray-failure windows (mirrors the simulator's dynamics on
         # the virtual clock: ft/failures.py "How degradations act")
@@ -227,7 +231,7 @@ class ResilientTrainer:
     def _checkpoint(self) -> float:
         """Run one checkpoint trigger; returns the blocking duration."""
         extra = {"pipeline": self.batcher.state_dict(), "t": self.t}
-        step = int(self.state["step"].item())
+        step = self._step_no = int(self.state["step"].item())
         report = self.ckpt.save(step, self.state, self.t, extra)
         self.events.append({"t": self.t, "event": "checkpoint", "step": step,
                             "kind": report.kind,
@@ -237,6 +241,11 @@ class ResilientTrainer:
 
     def _restore(self, failure_kind: str = "node",
                  host: Optional[int] = None) -> None:
+        with timing.span("trainer.restore"):
+            self._restore_state(failure_kind, host)
+
+    def _restore_state(self, failure_kind: str,
+                       host: Optional[int]) -> None:
         self.ckpt.on_failure(failure_kind, host=host)
         # samples taken while catching up after the rollback reflect the
         # failure, not steady state — hold healthy() low for a grace window
@@ -247,8 +256,10 @@ class ResilientTrainer:
             self.events.append({"t": self.t, "event": "restore_fresh"})
             return
         self.state = None              # drop the failed state first
-        self.state = tree_map(lambda x: to_tensor(x, self.device),
-                              report.state)
+        with timing.span("trainer.restore.h2d"):
+            self.state = tree_map(lambda x: to_tensor(x, self.device),
+                                  report.state)
+        self._step_no = report.step
         self.batcher.restore(report.extra["pipeline"])
         self.events.append({"t": self.t, "event": "restore",
                             "step": report.step, "level": report.level,
@@ -310,12 +321,17 @@ class ResilientTrainer:
             if batch is None:
                 self.t += 0.05        # idle: stream underrun
                 continue
-            w0 = time.monotonic()
-            bt = {"tokens": torch.from_numpy(batch["tokens"]).to(self.device),
-                  "labels": torch.from_numpy(batch["labels"]).to(self.device)}
-            self.state, metrics = self.step_fn(self.state, bt)
-            loss = float(metrics["loss"])
-            wall = time.monotonic() - w0
+            with self._step_span():
+                w0 = time.monotonic()
+                with timing.span("trainer.h2d"):
+                    bt = {"tokens": torch.from_numpy(batch["tokens"]).to(
+                              self.device),
+                          "labels": torch.from_numpy(batch["labels"]).to(
+                              self.device)}
+                self.state, metrics = self.step_fn(self.state, bt)
+                with timing.span("trainer.loss_read"):
+                    loss = float(metrics["loss"])
+                wall = time.monotonic() - w0
             self._measured_step_s = wall
             # a straggler window inflates the virtual step time — the job
             # runs slower without any failure event firing (gray, not dead)
@@ -334,6 +350,18 @@ class ResilientTrainer:
             self.metrics.record("latency", self.t, lat)
             if on_second is not None:
                 on_second({"t": self.t, "loss": loss, "lag": self.stream.lag})
+
+    def _step_span(self):
+        """The span of one step (the interval ``step_time`` measures),
+        numbered by the state's step after it."""
+        if self._step_no is not None:
+            self._step_no += 1
+        if not timing.enabled():
+            return timing.OFF
+        if self._step_no is None:
+            self._step_no = int(self.state["step"]) + 1
+        return timing.span("trainer.step", retries_of=self.device,
+                           step=self._step_no)
 
     # ------------------------------------------------------------------
     def summary(self) -> dict:
