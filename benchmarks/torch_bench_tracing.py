@@ -67,6 +67,13 @@ def _per_save(rec, kind: str, names: tuple) -> list:
     return out
 
 
+def _children(rec, kind: str, name: str) -> list:
+    """The spans named ``name`` directly under a window save of ``kind``
+    (saves without one count nothing)."""
+    ids = {save["id"] for save in _saves(rec, kind)}
+    return [s for s in rec.spans if s["parent"] in ids and s["name"] == name]
+
+
 def _overlaps(span: dict, others: list) -> bool:
     return any(span["start"] < o["end"] and span["end"] > o["start"]
                for o in others)
@@ -102,6 +109,14 @@ def delta_link_mb(rec):
     return statistics.fmean(got) / 1e6 if got else None
 
 
+def full_staged_mb(rec):
+    got = [s["attrs"]["staged_bytes"]
+           for s in _named(rec, "ckpt.d2h.background")
+           if s["attrs"].get("kind") == "full"
+           and "staged_bytes" in s["attrs"]]
+    return statistics.fmean(got) / 1e6 if got else None
+
+
 def landing_pin_ms(rec):
     got = [_dur(s) for s in _named(rec, "ckpt.landing.pin")]
     return sum(got) * 1e3 if got else None
@@ -129,12 +144,15 @@ READINGS = {
         r, "delta", ("ckpt.d2h.first", "ckpt.d2h.queue", "ckpt.d2h.wait"))),
         "mean d2h.first + d2h.queue + d2h.wait of a delta save"),
     "delta_link_mb": (delta_link_mb, "mean bytes_on_link of a delta / 1e6"),
-    "full_first_chunk_ms": (lambda r: _mean_ms(_per_save(
-        r, "full", ("ckpt.d2h.first",))), "mean d2h.first of a full save"),
+    "full_first_chunk_ms": (lambda r: _mean_ms(
+        [_dur(s) for s in _children(r, "full", "ckpt.d2h.first")]),
+        "mean d2h.first of the full saves that copy one"),
     "full_blocking_ms": (lambda r: _mean_ms(
         [_dur(s) for s in _saves(r, "full")]), "mean ckpt.save of a full"),
     "full_base_ms": (lambda r: _mean_ms(_per_save(
         r, "full", ("ckpt.full.base",))), "mean ckpt.full.base of a full"),
+    "full_staged_mb": (full_staged_mb,
+                       "mean staged_bytes of a full's d2h.background / 1e6"),
     "restore_d2h_ms": (lambda r: _mean_ms(
         [_dur(s) for s in _named(r, "ckpt.restore.snapshot")]),
         "mean ckpt.restore.snapshot"),

@@ -236,10 +236,11 @@ class CheckpointManager:
         # flight, or parked at the memory level / as the delta base) —
         # aliasing host arrays the caller may mutate would corrupt it.
         # ChunkedHostSnapshot copies only the mutable host leaves up front;
-        # immutable device chunks stream to the io workers in background,
-        # so blocking_s is the first chunk's device sync, not the full copy.
-        # plan.eager_snapshot disables the deferral (donated-buffer states:
-        # the "immutable" device arrays are re-used by the next step)
+        # immutable device leaves stream off the device in background (a
+        # CUDA device's on its own stream), so blocking_s is the queueing,
+        # not the copy.  plan.eager_snapshot disables the deferral
+        # (donated-buffer states: the "immutable" device arrays are re-used
+        # by the next step)
         need_copy = (self._committer is not None or "memory" in levels
                      or self.plan.mode == "incremental")
         device_delta = (kind == "delta"
@@ -254,6 +255,11 @@ class CheckpointManager:
                                    chunk_bytes=self.plan.chunk_bytes,
                                    landing=self._landing)
         else:
+            if kind == "full" and self.plan.encode_placement == "device":
+                # the base's pack goes first, so it never waits behind
+                # the snapshot's copies
+                with timing.span("ckpt.full.base"):
+                    self._device_base = DeviceDeltaBase(state)
             snap = (ChunkedHostSnapshot(
                         state, self.plan.chunk_bytes,
                         defer_device=not self.plan.eager_snapshot)
@@ -266,9 +272,6 @@ class CheckpointManager:
             self.saves_by_level["memory"] += 1
         if kind == "full":
             self._base, self._base_step = snap, step
-            if self.plan.encode_placement == "device":
-                with timing.span("ckpt.full.base"):
-                    self._device_base = DeviceDeltaBase(state)
         base, base_step = self._base, self._base_step
         self._count += 1
 
@@ -336,6 +339,11 @@ class CheckpointManager:
         extra = extra or {}
         self.wait()
         t0 = time.monotonic()
+        if self.plan.encode_placement == "device":
+            # the savepoint anchors a fresh delta chain; refresh the
+            # device-resident base so post-drain deltas encode against it
+            # (packed before the snapshot's copies, as on a full trigger)
+            self._device_base = DeviceDeltaBase(state)
         snap = ChunkedHostSnapshot(state, self.plan.chunk_bytes,
                                    defer_device=not self.plan.eager_snapshot)
         levels = []
@@ -344,10 +352,6 @@ class CheckpointManager:
             self.saves_by_level["memory"] += 1
             levels.append("memory")
         self._base, self._base_step = snap, step
-        if self.plan.encode_placement == "device":
-            # the savepoint anchors a fresh delta chain; refresh the
-            # device-resident base so post-drain deltas encode against it
-            self._device_base = DeviceDeltaBase(state)
         nbytes, paths = 0, []
         for level, store in self.stores.items():
             paths.append(store.save(step, snap, timestamp,

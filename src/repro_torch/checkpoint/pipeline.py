@@ -28,27 +28,38 @@ loud instead of silent: every held tensor's ``_version`` is recorded when
 it is taken and checked again whenever it is encoded or copied; an
 in-place change in between raises ``SnapshotMutationError``.
 
-Streams.  D2H copies run on ``transfer_pool`` threads as synchronous
-copies into host memory on the default stream, so they are ordered after
-the encode that produced their input; no ``non_blocking`` copy is ever
-made.  A device delta's encoded payload lands in the manager's
-``HostLanding`` (page-locked for CUDA tensors, reused from trigger to
-trigger); raw leaves land in pageable numpy arrays.
+Streams.  A device delta's payload and the plain path's chunks are
+copied on ``transfer_pool`` threads as synchronous copies on the default
+stream, so they are ordered after the encode that produced their input.
+A delta's encoded payload lands in the manager's ``HostLanding``
+(page-locked for CUDA tensors, reused from trigger to trigger).  A
+snapshot's CUDA leaves never touch the default stream: they are copied on
+their device's own transfer stream, ordered after the step that made them
+by one event, through a small page-locked ``StagingRing`` into pageable
+numpy arrays.
 
   * ``ChunkedHostSnapshot``: mutable host leaves (``np.ndarray``) are
-    deep-copied eagerly; tensors are held by reference (version-checked)
-    and grouped, whole leaves at a time, into chunks of at least
-    ``chunk_bytes``; the first chunk is copied synchronously (the blocking
-    cost: a whole leaf, however large) and the rest transfer on
-    ``transfer_pool``.
+    deep-copied eagerly; tensors are held by reference (version-checked).
+    Contiguous CUDA tensors are laid end to end and cut by bytes, within
+    a leaf where it is larger than a slot, into chunks of one ring slot
+    each: each chunk is a ``non_blocking`` copy on the transfer stream,
+    and one of the ring's threads waits for its event, copies the slot
+    into the leaves' host arrays and frees the slot.  Nothing of this
+    waits for the device before ``save`` returns.  Other tensors (CPU,
+    non-contiguous) are grouped, whole leaves at a time, into chunks of
+    at least ``chunk_bytes``; the first is copied synchronously and the
+    rest on ``transfer_pool``.
   * ``LeafSource`` is the uniform interface the parallel writers consume:
     names/specs immediately, ``get(name)`` blocks until that leaf is on
     the host.
-  * Two pools: D2H transfers on ``transfer_pool``, compression/writes on
-    ``io_pool``; IO tasks wait on transfers, never the reverse.
+  * Two pools: D2H transfers on ``transfer_pool`` (and the staging
+    rings' own threads), compression/writes on ``io_pool``; IO tasks wait
+    on transfers, never the reverse.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 import threading
 import weakref
@@ -66,11 +77,15 @@ from repro_torch.utils.trees import (np_dtype, tensor_to_numpy,
                                      tree_unflatten)
 
 # D2H granularity.  A device delta's payload planes are cut into chunks of
-# this many bytes.  A ChunkedHostSnapshot cuts no leaf: it groups whole
-# leaves until a chunk holds at least this many bytes, so its first chunk,
-# the one copied while the caller waits, is at least the whole first leaf
-# (yi-6b's opt/m/emb/embed: 1.05 GB).
+# this many bytes, and a ChunkedHostSnapshot's plain path (CPU or
+# non-contiguous tensors) groups whole leaves until a chunk holds at least
+# this many.  Its CUDA leaves go through the staging ring instead, in
+# chunks of one slot (STAGING_SLOT_BYTES), cut within a leaf.
 DEFAULT_CHUNK_BYTES = 4 << 20
+# The staging ring of a CUDA device: this many page-locked slots of this
+# many bytes (256 MiB pinned once per device and process).
+STAGING_SLOTS = 4
+STAGING_SLOT_BYTES = 64 << 20
 
 _pool_lock = threading.Lock()
 _transfer_pool: Optional[ThreadPoolExecutor] = None
@@ -189,6 +204,218 @@ class HostLanding:
         self.buf, self.pinned, self._unpin = None, False, None
 
 
+def plan_chunks(nbytes: list, slot_bytes: int) -> list:
+    """The leaves' bytes laid end to end in leaf order and cut into chunks
+    of at most ``slot_bytes``: each chunk a list of ``(leaf, start, end)``
+    byte pieces.  A leaf larger than the room left in a chunk is cut, so
+    every chunk but the last is exactly one slot."""
+    chunks, cur, room = [], [], slot_bytes
+    for leaf, n in enumerate(nbytes):
+        a = 0
+        while a < n:
+            b = min(n, a + room)
+            cur.append((leaf, a, b))
+            room -= b - a
+            a = b
+            if room == 0:
+                chunks.append(cur)
+                cur, room = [], slot_bytes
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+class StagingRing:
+    """A device's transfer stream and a few page-locked host slots its
+    tensors are staged through on their way to pageable host memory.
+
+    A chunk takes a free slot, is copied into it with ``non_blocking``
+    copies on ``stream`` and marked by the slot's event; one of the ring's
+    own two ``ckpt-d2h-ring`` threads waits for the event (the GIL
+    released), copies the slot out and frees it, which starts the next
+    queued chunk.  So the copies never run on, or wait behind, the default
+    stream, at most ``slots`` chunks are in flight, and a delta's payload
+    pulls on ``transfer_pool`` never queue behind a full's copy-out.  One
+    ring per device for the process (``staging_ring``), made once and
+    reused by every snapshot; the queue is shared, in order.  On the CPU
+    (tests) the copies are plain synchronous ones."""
+
+    def __init__(self, device: Any, slots: int = STAGING_SLOTS,
+                 slot_bytes: int = STAGING_SLOT_BYTES):
+        self.device = torch.device(device)
+        self.slot_bytes = int(slot_bytes)
+        cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        self._events = [torch.cuda.Event(blocking=True) if cuda else None
+                        for _ in range(slots)]
+        self._buf = torch.empty(slots * self.slot_bytes, dtype=torch.uint8,
+                                pin_memory=cuda)
+        self._host = self._buf.numpy()
+        self._free = list(range(slots))
+        self._queue: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._landers = ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix="ckpt-d2h-ring")
+
+    def ready(self) -> Optional[torch.cuda.Event]:
+        """An event on the device's current stream: what a snapshot taken
+        now must come after (None on the CPU)."""
+        if self.stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def submit(self, transfer: "RingTransfer", chunks: list,
+               ready: Optional[torch.cuda.Event]) -> None:
+        """Queue ``transfer``'s chunks behind ``ready``."""
+        with self._lock:
+            if ready is not None:
+                self.stream.wait_event(ready)
+            self._queue.extend((transfer, chunk) for chunk in chunks)
+        self._pump()
+
+    def _pump(self) -> None:
+        while True:
+            with self._lock:
+                if not (self._free and self._queue):
+                    return
+                slot = self._free.pop()
+                transfer, chunk = self._queue.popleft()
+            transfer.copy_in(slot, chunk)
+            self._landers.submit(transfer.land, slot, chunk)
+
+    def on_stream(self):
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def slot(self, slot: int) -> torch.Tensor:
+        return self._buf[slot * self.slot_bytes:(slot + 1) * self.slot_bytes]
+
+    def host(self, slot: int) -> np.ndarray:
+        return self._host[slot * self.slot_bytes:
+                          (slot + 1) * self.slot_bytes]
+
+    def record(self, slot: int) -> None:
+        if self.stream is not None:
+            self._events[slot].record(self.stream)
+
+    def synchronize(self, slot: int) -> None:
+        if self.stream is not None:
+            self._events[slot].synchronize()
+
+    def release(self, slot: int) -> None:
+        with self._lock:
+            self._free.append(slot)
+        self._pump()
+
+
+_rings: dict = {}
+
+
+def staging_ring(device: Any) -> StagingRing:
+    """The process's staging ring of CUDA ``device``, made at first use."""
+    key = str(torch.device(device))
+    with _pool_lock:
+        if key not in _rings:
+            _rings[key] = StagingRing(device)
+        return _rings[key]
+
+
+class RingTransfer:
+    """One snapshot's tensors of one device on their way through its
+    ``StagingRing`` into ``hosts`` (the snapshot's host arrays, one a
+    leaf).  ``futures[i]`` resolves to ``{name: host array}`` once every
+    piece of leaf ``i`` has landed.  A leaf's tensor is version-checked
+    before its first piece is copied and after its last piece's event has
+    completed, and only then released: the caching allocator cannot hand
+    its memory to the next step while the transfer stream still reads it.
+    ``on_landed(nbytes)`` is called once for each chunk, after it landed."""
+
+    def __init__(self, held: list, hosts: list, ring: StagingRing,
+                 on_landed):
+        self.held = list(held)
+        self.hosts = hosts
+        self.futures = [Future() for _ in held]
+        self._bytes = [h.reshape(-1).view(np.uint8) for h in hosts]
+        self._ring, self._on_landed = ring, on_landed
+        self._error: list = [None] * len(held)
+        self._lock = threading.Lock()
+        self.chunks = plan_chunks([b.size for b in self._bytes],
+                                  ring.slot_bytes)
+        self._left = [0] * len(held)
+        for chunk in self.chunks:
+            for leaf, _, _ in chunk:
+                self._left[leaf] += 1
+        for leaf, left in enumerate(self._left):
+            if not left:                     # an empty leaf: nothing to copy
+                self._finish(leaf)
+
+    def start(self) -> None:
+        """Queue the chunks behind the work on the current stream."""
+        self._ring.submit(self, self.chunks, self._ring.ready())
+
+    def copy_in(self, slot: int, chunk: list) -> None:
+        """Enqueue the chunk's pieces into ``slot`` and mark it."""
+        ring, off = self._ring, 0
+        dst = ring.slot(slot)
+        with ring.on_stream():
+            for leaf, a, b in chunk:
+                if self._error[leaf] is None:
+                    try:
+                        if a == 0:
+                            self.held[leaf].check()
+                        src = self.held[leaf].tensor.detach().reshape(-1)
+                        dst[off:off + b - a].copy_(
+                            src.view(torch.uint8)[a:b], non_blocking=True)
+                    except Exception as exc:   # lands as this leaf's error
+                        self._error[leaf] = exc
+                off += b - a
+            ring.record(slot)
+
+    def land(self, slot: int, chunk: list) -> None:
+        """Wait for the slot's copies, copy it out, free it; resolve the
+        leaves whose last piece this was."""
+        ring, off = self._ring, 0
+        try:
+            ring.synchronize(slot)
+            src = ring.host(slot)
+            for leaf, a, b in chunk:
+                if self._error[leaf] is None:
+                    np.copyto(self._bytes[leaf][a:b], src[off:off + b - a])
+                off += b - a
+        except Exception as exc:
+            for leaf, _, _ in chunk:
+                self._error[leaf] = self._error[leaf] or exc
+        finally:
+            ring.release(slot)
+        done, moved = [], 0
+        with self._lock:
+            for leaf, a, b in chunk:
+                moved += (b - a) if self._error[leaf] is None else 0
+                self._left[leaf] -= 1
+                if not self._left[leaf]:
+                    done.append(leaf)
+        self._on_landed(moved)
+        for leaf in done:
+            self._finish(leaf)
+
+    def _finish(self, leaf: int) -> None:
+        held, self.held[leaf] = self.held[leaf], None
+        error = self._error[leaf]
+        if error is None:
+            try:
+                held.check()        # a change while it was in flight
+            except SnapshotMutationError as exc:
+                error = exc
+        name = held.name
+        del held                    # released before anyone is woken
+        if error is not None:
+            self.futures[leaf].set_exception(error)
+        else:
+            self.futures[leaf].set_result({name: self.hosts[leaf]})
+
+
 def _spec_of(leaf: Any) -> tuple[tuple, np.dtype]:
     return tuple(leaf.shape), np_dtype(leaf)
 
@@ -249,17 +476,28 @@ class PlainLeafSource(LeafSource):
         return self._leaves[name]
 
 
+def _stageable(tensor: torch.Tensor) -> bool:
+    """A tensor that goes through its device's staging ring."""
+    return tensor.is_cuda and tensor.is_contiguous()
+
+
 class ChunkedHostSnapshot(LeafSource):
     """Point-in-time host snapshot with chunked, overlapped D2H transfer.
 
-    Chunks are whole leaves: tensors are grouped in order until a chunk
-    holds at least ``chunk_bytes``, and no leaf is cut, so a chunk is never
-    smaller than its largest leaf (the first one of a yi-6b state is the
-    1.05 GB ``opt/m/emb/embed``).  Blocking work (done in ``__init__``):
-    deep-copy of every host leaf + synchronous copy of the first tensor
-    chunk (the device sync).  Everything else lands on ``transfer_pool``
-    and is pulled by ``get``/``wait``.  ``defer_device=False`` copies every
-    tensor before returning (``CheckpointPlan.eager_snapshot``).
+    Blocking work (done in ``__init__``): deep-copy of every host leaf,
+    and the queueing of every tensor's copy.  Contiguous CUDA tensors go
+    through their device's ``StagingRing``: one event on the current
+    stream (the one that produced the state) orders the ring's transfer
+    stream after it, the leaves are cut by bytes, within a leaf, into
+    chunks of one slot (``plan_chunks``; yi-6b's 1.05 GB
+    ``opt/m/emb/embed`` spans 16 of 64 MiB), and nothing waits for the
+    device before ``__init__`` returns.  Other tensors (CPU, non-contiguous) are
+    grouped, whole leaves at a time, into chunks of at least
+    ``chunk_bytes``: the first is copied synchronously, the rest on
+    ``transfer_pool``.  Each leaf lands in a host array of its own, pulled
+    by ``get``/``wait``.  ``staged_bytes`` counts the bytes that have come
+    through a ring.  ``defer_device=False`` copies every tensor before
+    returning (``CheckpointPlan.eager_snapshot``).
     """
 
     def __init__(self, state: Any, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
@@ -270,16 +508,21 @@ class ChunkedHostSnapshot(LeafSource):
         self._spec: dict[str, tuple[tuple, np.dtype]] = {}
         self._leaves: dict[str, np.ndarray] = {}
         self._future_of: dict[str, Future] = {}
+        self.staged_bytes = 0
+        self._staged_lock = threading.Lock()
 
         deferred: list[HeldTensor] = []
+        staged: dict[torch.device, list[HeldTensor]] = {}
         for name, leaf in named:
             if isinstance(leaf, torch.Tensor):
                 self._spec[name] = _spec_of(leaf)
                 held = HeldTensor(name, leaf)
-                if defer_device:
-                    deferred.append(held)
-                else:
+                if not defer_device:
                     self._leaves[name] = held.to_numpy()
+                elif _stageable(leaf):
+                    staged.setdefault(leaf.device, []).append(held)
+                else:
+                    deferred.append(held)
             else:
                 # mutable host memory (or a scalar): copy NOW — the caller
                 # may mutate it the moment save() returns
@@ -298,17 +541,30 @@ class ChunkedHostSnapshot(LeafSource):
         if cur:
             chunks.append(cur)
 
-        if not chunks:
+        if not (chunks or staged):
             return
-        with timing.span("ckpt.d2h.first"):   # the device sync point
-            self._leaves.update(self._materialize(chunks[0]))
+        if chunks:
+            with timing.span("ckpt.d2h.first"):   # the device sync point
+                self._leaves.update(self._materialize(chunks[0]))
         with timing.span("ckpt.d2h.queue"):
-            landed = timing.pending("ckpt.d2h.background", len(chunks) - 1)
+            transfers = []
+            for device, held in staged.items():
+                hosts = [np.empty(*self._spec[h.name]) for h in held]
+                transfer = RingTransfer(held, hosts, staging_ring(device),
+                                        self._landed)
+                for h, fut in zip(held, transfer.futures):
+                    self._future_of[h.name] = fut
+                transfers.append(transfer)
+            parts = len(chunks) - 1 + sum(len(t.chunks) for t in transfers)
+            self._background = timing.pending("ckpt.d2h.background", parts)
+            self._background.set(staged_bytes=0)
             pool = transfer_pool()
             for chunk in chunks[1:]:
-                fut = pool.submit(self._materialize, chunk, landed)
+                fut = pool.submit(self._materialize, chunk, self._background)
                 for held in chunk:
                     self._future_of[held.name] = fut
+            for transfer in transfers:
+                transfer.start()
 
     @staticmethod
     def _materialize(chunk: list,
@@ -317,6 +573,13 @@ class ChunkedHostSnapshot(LeafSource):
             return {held.name: held.to_numpy() for held in chunk}
         finally:
             landed.done()
+
+    def _landed(self, nbytes: int) -> None:
+        """One ring chunk of this snapshot has landed."""
+        with self._staged_lock:
+            self.staged_bytes += nbytes
+            self._background.set(staged_bytes=self.staged_bytes)
+        self._background.done()
 
     def spec(self, name: str) -> tuple[tuple, np.dtype]:
         return self._spec[name]

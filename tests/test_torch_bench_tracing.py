@@ -119,9 +119,53 @@ def test_readers_on_a_synthetic_window():
     assert got["full_first_chunk_ms"] == pytest.approx(160.0)
     assert got["full_blocking_ms"] == pytest.approx(200.0)
     assert got["full_base_ms"] == 0.0
+    assert got["full_staged_mb"] is None          # no staged_bytes: no ring
     for name in ("step_idle_ms.grad", "restore_d2h_ms", "restore_copy_ms",
                  "restore_h2d_ms", "landing_pin_ms"):
         assert got[name] is None
     table = TB.span_table(SimpleNamespace(spans=spans))
     assert table["trainer.step"][0] == 4                      # in the window
     assert all(v is None for v in TB.readings(SimpleNamespace()).values())
+
+
+def _fulls(first: bool):
+    """Two full saves (base, then queueing; ``first``: a first chunk in
+    between on the first save) and their background D2H with the bytes
+    they staged."""
+    spans = []
+    for k, (t, staged) in enumerate(((0.0, 10_000_000), (1.0, 20_000_000))):
+        i = 10 * (k + 1)
+        spans += [_span(i, "ckpt.save", t, t + 0.1, step=i, kind="full"),
+                  _span(i + 1, "ckpt.full.base", t, t + 0.01, i, step=i,
+                        kind="full")]
+        if first and k == 0:
+            spans.append(_span(i + 2, "ckpt.d2h.first", t + 0.01, t + 0.05,
+                               i, step=i, kind="full"))
+        spans += [_span(i + 3, "ckpt.d2h.queue", t + 0.05, t + 0.06, i,
+                        step=i, kind="full"),
+                  _span(i + 4, "ckpt.d2h.background", t + 0.05, t + 0.9,
+                        i + 3, step=i, kind="full", staged_bytes=staged)]
+    return spans
+
+
+def test_full_readings_with_and_without_a_first_chunk():
+    """A full that only queues has no first chunk: the reading is None
+    where no full has one, and the mean over those that do otherwise.  The
+    staged bytes are the mean over the fulls' background D2H."""
+    def read(spans):
+        return TB.readings(SimpleNamespace(spans=spans, trace=None,
+                                           traced_step_walls=[]))
+    queued, mixed = read(_fulls(first=False)), read(_fulls(first=True))
+    assert queued["full_first_chunk_ms"] is None
+    assert mixed["full_first_chunk_ms"] == pytest.approx(40.0)
+    for got in (queued, mixed):
+        assert got["full_staged_mb"] == pytest.approx(15.0)
+        assert got["full_base_ms"] == pytest.approx(10.0)
+        assert got["full_blocking_ms"] == pytest.approx(100.0)
+    # a delta's background D2H is not a full's
+    spans = _fulls(first=False) + [
+        _span(90, "ckpt.save", 2.0, 2.1, step=90, kind="delta",
+              bytes_on_link=5),
+        _span(91, "ckpt.d2h.background", 2.0, 2.1, 90, step=90,
+              kind="delta", staged_bytes=0)]
+    assert read(spans)["full_staged_mb"] == pytest.approx(15.0)

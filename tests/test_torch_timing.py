@@ -282,8 +282,10 @@ PARTS = {
     "delta": ("ckpt.save", ("ckpt.delta.pack", "ckpt.delta.encode",
                             "ckpt.delta.stats", "ckpt.d2h.first",
                             "ckpt.d2h.queue", "ckpt.d2h.wait")),
-    "full": ("ckpt.save", ("ckpt.d2h.first", "ckpt.d2h.queue",
-                           "ckpt.full.base")),
+    # the base's pack goes first; a CPU tensor's full (this job runs on the
+    # CPU) then copies its first chunk, where a CUDA one only queues
+    "full": ("ckpt.save", ("ckpt.full.base", "ckpt.d2h.first",
+                           "ckpt.d2h.queue")),
     "restore": ("ckpt.restore", ("ckpt.restore.snapshot",
                                  "ckpt.restore.copy")),
 }
@@ -292,7 +294,7 @@ PARTS = {
 @pytest.mark.parametrize("what", sorted(PARTS))
 def test_each_save_and_the_restore_hold_their_parts(job, what):
     """Each delta save holds its pack, encode, stats, first chunk, queueing
-    and wait; each full its first chunk, queueing and base; the restore its
+    and wait; each full its base, first chunk and queueing; the restore its
     snapshot's D2H and its copy, under the trainer's restore and before the
     trainer's H2D.  The parts run in order inside their parent and carry
     its step and kind (the landing's pin, once before the first delta and
