@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from khaosbench.reference.codec import GROUP, layout, worst_error_over_bound
-from khaosbench.reference.model import flatten
+from khaosbench.reference.tree import flatten
 
 EXCLUDE_BELOW = 1e-3
 

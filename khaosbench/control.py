@@ -29,17 +29,14 @@ def readings(cfg: dict, seed: int, device: str, leaves: bool = False,
              fault: bool = True) -> dict:
     from khaosbench import checks
     from khaosbench.harness import CellRun
-    from khaosbench.reference.model import FP8
+    from khaosbench.reference.precision import FP8
 
     quiet = {"source": "saturated", "ci_s": 1e9, "failures": [],
              "failure_kind": "task",
              "plan": {"mode": "full", "levels": ["memory"]}}
     run = CellRun(cfg, quiet, seed, 1.0, device=device)
     run.setup()
-    loads = None
-    if run.loads is not None:
-        loads = run.loads.summary()
-        run.loads.uninstall()
+    run.observe()
     run.release()
     ref, expected = run.reference()
     fp8, _ = run.reference(FP8())
@@ -48,9 +45,8 @@ def readings(cfg: dict, seed: int, device: str, leaves: bool = False,
            "program": {**checks.training_gaps(run.program, ref, groups),
                        "token_mismatch": checks.token_mismatches(
                            run.fed, expected)},
-           "control": checks.training_gaps(fp8, ref, groups)}
-    if loads is not None:
-        out["expert_loads"] = loads
+           "control": checks.training_gaps(fp8, ref, groups),
+           **run.rec.observed}
     if fault:
         half, _ = run.reference(rows=cfg["run"]["batch"] // 2)
         out["half_batch"] = checks.training_gaps(half, ref, groups)

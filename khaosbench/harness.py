@@ -6,9 +6,16 @@ loop (``run``), batcher, train step and checkpoint manager.  The harness
 hands it the benchmark's weights and stream, and wraps four of its calls
 to see them on the wall clock: the step (``step_fn``), the checkpoint
 trigger (``_checkpoint``), the restore (``_restore``) and the batcher
-(``WaitingBatcher``, where the window closes and failures are injected);
-in a MoE it also counts the dispatch's per-expert loads
-(``khaosbench/routing.py``).
+(``WaitingBatcher``, where the window closes and failures are injected).
+
+Nothing here knows an architecture.  A configuration names its model
+module (``"model"``, found by ``spec.model``), and the module gives the
+program's ``ModelConfig``, the parameter tree, the train state, the plain
+reference, the counts behind the utilisation metrics and the observers
+it wraps around the run with the checks they add (a MoE's count of the
+pairs its dispatch dropped).  A new configuration of a known architecture
+is its JSON file; a new architecture is its JSON file and its model
+module.
 
 Set-up builds the trainer once, replaces its weights with the benchmark's
 (made from the seed on the device), and drives it through its own loop:
@@ -16,19 +23,21 @@ three steps whose loss, first gradient and parameter change the reference
 checks, then (in a cell whose checkpoint interval fits in the window) one
 full and one int8 delta trigger, which build and load the codec's kernel
 and register the host landing, then one more step.  The window follows on
-the same object.
+the same object.  In a traced run the program's own tracer
+(``repro_torch.utils.timing``) records its spans over the window, kept in
+``Record.spans``; its profiler events name the device's idle gaps beside
+the harness's own.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
-import importlib
 import subprocess
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from pathlib import Path
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -38,11 +47,10 @@ from repro_torch.config import CheckpointPlan, OptimizerConfig
 from repro_torch.ft.failures import InjectedFailure
 from repro_torch.runtime import ResilientTrainer, TrainerConfig
 
-from khaosbench import checks, flops, timeline
+from khaosbench import checks, flops, spec, timeline
 from khaosbench.rates import card_rates
-from khaosbench.reference import model as ref_model
 from khaosbench.reference import tokens as ref_tokens
-from khaosbench.routing import ExpertLoads
+from khaosbench.reference.tree import flatten
 from khaosbench.source import (WaitingBatcher, WallClockStream, WindowClosed,
                                arrivals)
 from khaosbench.trace import TraceSummary, from_profiler
@@ -62,59 +70,10 @@ def data_seed(seed: int) -> int:
     return seed % (1 << 32)
 
 
-def model_config(cfg: dict):
-    """The program's ``ModelConfig`` for a configuration file: the port's
-    preset with the file's depth, norm epsilon, precisions and (for a
-    MoE) capacity factor; every other width the file states must match
-    the preset."""
-    port = getattr(importlib.import_module(
-        "repro_torch.configs." + cfg["port"]["module"]),
-        cfg["port"].get("object", "CONFIG"))
-    run = cfg["run"]
-    mc = dataclasses.replace(
-        port, num_layers=cfg["num_hidden_layers"],
-        norm_eps=cfg["rms_norm_eps"], dtype=run["dtype"],
-        param_dtype=run["param_dtype"], remat_policy=run["remat_policy"])
-    if mc.moe is not None:
-        mc = dataclasses.replace(mc, moe=dataclasses.replace(
-            mc.moe, capacity_factor=cfg["capacity_factor"]))
-    got = {"family": mc.family, "hidden_size": mc.d_model,
-           "num_attention_heads": mc.num_heads,
-           "num_key_value_heads": mc.num_kv_heads,
-           "head_dim": mc.resolved_head_dim, "vocab_size": mc.vocab_size,
-           "vocab_pad_multiple": mc.vocab_pad_multiple,
-           "rope_theta": mc.rope_theta, "hidden_act": mc.activation,
-           "tie_word_embeddings": mc.tie_embeddings,
-           "attention_bias": mc.qkv_bias,
-           "softcap": mc.attn_logit_softcap, "norm": mc.norm_type}
-    want = {"family": cfg["port"]["family"],
-            "hidden_size": cfg["hidden_size"],
-            "num_attention_heads": cfg["num_attention_heads"],
-            "num_key_value_heads": cfg["num_key_value_heads"],
-            "head_dim": ref_model.head_dim(cfg),
-            "vocab_size": cfg["vocab_size"],
-            "vocab_pad_multiple": cfg["vocab_pad_multiple"],
-            "rope_theta": cfg["rope_theta"], "hidden_act": "swiglu",
-            "tie_word_embeddings": cfg["tie_word_embeddings"],
-            "attention_bias": cfg["attention_bias"], "softcap": 0.0,
-            "norm": "rmsnorm"}
-    if ref_model.is_moe(cfg):
-        got.update(num_experts=mc.moe.num_experts,
-                   num_experts_per_tok=mc.moe.top_k,
-                   intermediate_size=mc.moe.d_ff_expert,
-                   router_aux_loss_coef=mc.moe.aux_loss_weight,
-                   capacity_factor=mc.moe.capacity_factor,
-                   router_jitter=mc.moe.router_jitter)
-        want.update({k: cfg[k] for k in (
-            "num_experts", "num_experts_per_tok", "intermediate_size",
-            "router_aux_loss_coef", "capacity_factor")}, router_jitter=0.0)
-    else:
-        got["intermediate_size"] = mc.d_ff
-        want["intermediate_size"] = cfg["intermediate_size"]
-    differ = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
-    if differ:
-        raise ValueError(f"the port's preset differs from the file: {differ}")
-    return mc
+def program_tracer():
+    """The port's tracer module, or None where the port has none."""
+    from repro_torch.utils import timing
+    return timing if hasattr(timing, "enable") else None
 
 
 def card_info(device: torch.device) -> dict:
@@ -138,6 +97,7 @@ class Record:
     cfg: dict
     batch: int
     seq_len: int
+    model: Any = None                                # the model module
     setup_s: float = 0.0
     window_s: float = 0.0
     log: list = field(default_factory=list)          # timeline entries
@@ -149,18 +109,22 @@ class Record:
     cursor0: int = 0
     cursor_end: int = 0
     trace: Optional[TraceSummary] = None
+    # traced: the program's spans over the window (``Span.as_dict()``,
+    # start and end in window seconds); None untraced or without a tracer
+    spans: Optional[list] = None
     card: dict = field(default_factory=dict)
     setup_parts: dict = field(default_factory=dict)   # for the log only
     traced_step_walls: list = field(default_factory=list)   # ditto
-    expert_loads: dict = field(default_factory=dict)        # ditto
+    observed: dict = field(default_factory=dict)   # observer -> summary
 
     @property
     def flops_per_step(self) -> float:
-        return flops.train_step_flops(self.cfg, self.batch, self.seq_len)
+        return self.model.train_step_flops(self.cfg, self.batch, self.seq_len)
 
     @property
     def int8_encode_bytes(self) -> int:
-        return flops.int8_encode_bytes(self.cfg)
+        return flops.int8_encode_bytes(
+            self.model.packed_state_elements(self.cfg))
 
     def rates(self):
         return card_rates(self.card["name"])
@@ -171,13 +135,14 @@ class CellRun:
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, seconds: float,
                  trace: bool = False, device="cuda",
-                 started: Optional[float] = None):
+                 started: Optional[float] = None, here: Path = spec.HERE):
         self.cfg, self.traffic = cfg, traffic
         self.seed, self.seconds, self.trace = seed, float(seconds), trace
         self.device = torch.device(device)
         self.started = time.perf_counter() if started is None else started
+        self.model = spec.model(cfg["model"], here)
         run = cfg["run"]
-        self.rec = Record(cfg, run["batch"], run["seq_len"])
+        self.rec = Record(cfg, run["batch"], run["seq_len"], self.model)
         # triggers fire in the window only where the interval fits in it
         self.warm_triggers = traffic["ci_s"] < self.seconds
         self.fingerprints = bool(traffic["failures"])
@@ -193,13 +158,13 @@ class CellRun:
         self.prof = None
         self.traced = False
         self._spans: dict = {}
-        self.loads: Optional[ExpertLoads] = None
+        self.observers: list = []
 
     # -- building ----------------------------------------------------------
     def build(self) -> None:
         cfg, traffic, run = self.cfg, self.traffic, self.cfg["run"]
         self.rec.card = card_info(self.device)
-        mc = model_config(cfg)
+        mc = self.model.port_config(cfg)
         self.opt_cfg = OptimizerConfig(**cfg["optimizer"])
         plan = CheckpointPlan(interval_s=traffic["ci_s"], **traffic["plan"])
         self.stream = WallClockStream(traffic.get("rate_events_per_s", 0.0))
@@ -209,26 +174,24 @@ class CellRun:
                              restart_s=0.0, plan=plan)
         tr = ResilientTrainer(mc, tcfg, self.stream, self.opt_cfg,
                               seed=data_seed(self.seed), device=self.device)
-        theirs = [(n, tuple(x.shape))
-                  for n, x in ref_model.flatten(tr.state["params"])]
+        theirs = [(n, tuple(x.shape)) for n, x in flatten(tr.state["params"])]
         tr.state = None
-        params = make_params(cfg, self.seed, self.device)
-        ours = [(n, tuple(x.shape)) for n, x in ref_model.flatten(params)]
+        params = make_params(self.model.param_shapes(cfg), self.seed,
+                             self.device)
+        ours = [(n, tuple(x.shape)) for n, x in flatten(params)]
         if theirs != ours:
             raise ValueError("the program's parameter tree differs from the "
                              "benchmark's")
-        tr.state = {"params": params, "opt": tr.optimizer.init(params),
-                    "step": torch.zeros((), dtype=torch.int32,
-                                        device=self.device)}
+        tr.state = self.model.initial_state(tr, params)
         self._inner_step, tr.step_fn = tr.step_fn, self._step
         self._inner_ckpt, tr._checkpoint = tr._checkpoint, self._checkpoint
         self._inner_restore, tr._restore = tr._restore, self._restore
         tr.batcher = WaitingBatcher(tr.batcher, self.stream, self._poll,
                                     self._deadline, self._span)
         self.tr = tr
-        if ref_model.is_moe(cfg):
-            self.loads = ExpertLoads(cfg, self.device)
-            self.loads.install()
+        self.observers = self.model.observers(cfg, self.device)
+        for obs in self.observers:
+            obs.install()
 
     # -- spans for the trace --------------------------------------------------
     def _span(self, label: str):
@@ -255,7 +218,7 @@ class CellRun:
                              batch["labels"].cpu().numpy()))
             if k == 0:
                 self._p0 = {n: x.clone()
-                            for n, x in ref_model.flatten(state["params"])}
+                            for n, x in flatten(state["params"])}
         new_state, metrics = self._inner_step(state, batch)
         if k == 0:
             self.program["grad_norms"] = checks.leaf_norms(
@@ -263,7 +226,7 @@ class CellRun:
         if k == CHECK_STEPS - 1:
             self.program["change_norms"] = {
                 n: float(torch.linalg.vector_norm(x - self._p0[n]))
-                for n, x in ref_model.flatten(new_state["params"])}
+                for n, x in flatten(new_state["params"])}
             del self._p0
         return new_state, metrics
 
@@ -406,16 +369,26 @@ class CellRun:
         rec.cursor0 = tr.batcher.cursor.offset
         rec.setup_s = self.stream.t0 - self.started
         self.phase = "window"
+        tracer = program_tracer() if self.trace else None
+        if tracer is not None:
+            tracer.reset()
+            tracer.enable()
         try:
             tr.run(duration_s=1e15, on_second=self._on_step)
         except WindowClosed:
             pass
+        finally:
+            if tracer is not None:
+                tracer.disable()
         self.phase = "closed"
         if self.prof is not None and not self.traced:
             self._trace_stop()
         rec.window_s = self.closed_at - self.stream.t0
         rec.cursor_end = tr.batcher.cursor.offset
         t0 = self.stream.t0
+        if tracer is not None:
+            rec.spans = [dict(sp.as_dict(), start=sp.start - t0,
+                              end=sp.end - t0) for sp in tracer.spans()]
         rec.log = [[e[0], e[1] - t0, *e[2:]] for e in self.log]
         rec.failures = [(t - t0, b) for t, b in rec.failures]
         for r in rec.triggers + rec.restores:
@@ -446,10 +419,7 @@ class CellRun:
         if self.fingerprints:
             missing = len(self.traffic["failures"]) - len(self.rec.restores)
             out["restore_mismatch"] = (self.restore_mismatch + abs(missing), 0)
-        if self.loads is not None:
-            self.rec.expert_loads = self.loads.summary()
-            self.loads.uninstall()
-            out["moe_pairs_dropped"] = (self.rec.expert_loads["dropped"], 0)
+        out.update(self.observe())
         self.release()
         ref, expected = self.reference()
         gaps = checks.training_gaps(self.program, ref,
@@ -460,6 +430,17 @@ class CellRun:
                                  0)
         self.tmp.cleanup()
         return {"memory_peak_bytes": int(peak)}, out
+
+    def observe(self) -> dict:
+        """Each observer's summary, kept on the record, and the checks it
+        adds; the observers are taken off the program."""
+        out = {}
+        for obs in self.observers:
+            summary = self.rec.observed[obs.name] = obs.summary()
+            obs.uninstall()
+            out.update(obs.checks(summary))
+        self.observers = []
+        return out
 
     def release(self) -> None:
         """Drop every reference to the program (the trainer, its wrapped
@@ -511,7 +492,8 @@ class CellRun:
         dev = [(torch.from_numpy(t[:rows]).to(self.device),
                 torch.from_numpy(l[:rows]).to(self.device))
                for t, l in batches]
-        params = make_params(self.cfg, self.seed, self.device)
-        out = ref_model.train_steps(params, self.cfg, self.cfg["optimizer"],
-                                    dev, precision)
+        params = make_params(self.model.param_shapes(self.cfg), self.seed,
+                             self.device)
+        out = self.model.train_steps(params, self.cfg, self.cfg["optimizer"],
+                                     dev, precision)
         return out, batches

@@ -1,6 +1,7 @@
-"""Plain float32 reference of the two trained models: a llama-style dense
-decoder (Yi-6B) and a top-k mixture-of-experts decoder (OLMoE-1B-7B),
-their loss, and one AdamW step.
+"""Plain float32 reference of the ``decoder`` model module's two
+architectures: a llama-style dense decoder (Yi-6B) and a top-k
+mixture-of-experts decoder (OLMoE-1B-7B), their parameter tree and their
+loss (the AdamW steps over it are ``adamw.py``'s).
 
 Written from the published descriptions and the configuration files in
 ``khaosbench/configs``; it imports nothing of the program.  The parameter
@@ -30,6 +31,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import adamw
+from .precision import Precision
 
 
 # ---------------------------------------------------------------------------
@@ -75,92 +79,6 @@ def param_shapes(cfg: dict) -> dict:
     return {"emb": {"embed": ((V, d), 0.02), "unembed": ((d, V), 0.02)},
             "final_norm": {"scale": ((d,), None)},
             "layers": layer}
-
-
-def flatten(tree: dict, prefix: str = "") -> list:
-    """(slash/name, leaf) pairs with dict keys in sorted order."""
-    out = []
-    for k in sorted(tree):
-        name = f"{prefix}{k}"
-        v = tree[k]
-        if isinstance(v, dict):
-            out.extend(flatten(v, name + "/"))
-        else:
-            out.append((name, v))
-    return out
-
-
-def unflatten(pairs: list) -> dict:
-    root: dict = {}
-    for name, leaf in pairs:
-        node = root
-        *path, last = name.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    return root
-
-
-# ---------------------------------------------------------------------------
-# Precision of the contractions
-# ---------------------------------------------------------------------------
-
-class Precision:
-    """float32 throughout (the reference)."""
-
-    name = "float32"
-
-    def einsum(self, eq: str, a: torch.Tensor, b: torch.Tensor):
-        return torch.einsum(eq, a, b)
-
-    def act(self, x: torch.Tensor) -> torch.Tensor:
-        """An activation where the program holds it in its compute dtype
-        (the residual stream, norm outputs, the attention and FFN
-        hidden states)."""
-        return x
-
-
-def fake_fp8(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 under one scale per tensor (amax to
-    448, the largest e4m3 value), back in float32."""
-    amax = x.detach().abs().amax().clamp_min(1e-30)
-    s = 448.0 / amax
-    return (x * s).to(torch.float8_e4m3fn).to(torch.float32) / s
-
-
-class _FP8Einsum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, eq, a, b):
-        qa, qb = fake_fp8(a), fake_fp8(b)
-        ctx.save_for_backward(qa, qb)
-        ctx.eq = eq
-        return torch.einsum(eq, qa, qb)
-
-    @staticmethod
-    def backward(ctx, g):
-        qa, qb = ctx.saved_tensors
-        with torch.enable_grad():
-            a = qa.detach().requires_grad_(True)
-            b = qb.detach().requires_grad_(True)
-            out = torch.einsum(ctx.eq, a, b)
-        ga, gb = torch.autograd.grad(out, (a, b), fake_fp8(g))
-        return None, ga, gb
-
-
-class FP8(Precision):
-    """The precision below bfloat16, for the control: every contraction's
-    operands, forward and backward, in float8 e4m3 with a per-tensor
-    scale (products accumulated in float32), and every activation the
-    program holds in bfloat16 rounded to float8 e4m3 (its gradient passed
-    straight through)."""
-
-    name = "fp8_e4m3"
-
-    def einsum(self, eq, a, b):
-        return _FP8Einsum.apply(eq, a, b)
-
-    def act(self, x):
-        return x + (fake_fp8(x) - x).detach()
 
 
 # ---------------------------------------------------------------------------
@@ -269,68 +187,12 @@ def loss_fn(params: dict, cfg: dict, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# AdamW
+# Training
 # ---------------------------------------------------------------------------
-
-def learning_rate(opt: dict, step: int) -> float:
-    """Linear warm-up to ``lr`` over ``warmup_steps``, then (``schedule``
-    "cosine") cosine to a tenth of it at ``total_steps``."""
-    warmup = max(1, opt["warmup_steps"])
-    total = max(opt["total_steps"], warmup + 1)
-    if step < warmup or opt["schedule"] == "constant":
-        return opt["lr"] * min(step / warmup, 1.0)
-    prog = min(max((step - warmup) / (total - warmup), 0.0), 1.0)
-    return opt["lr"] * (0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * prog)))
-
-
-def adamw_step(params: list, grads: list, m: list, v: list, step: int,
-               opt: dict):
-    """One AdamW step over parallel lists of leaves, after clipping the
-    gradients to a global norm of ``grad_clip``; returns the new
-    (params, m, v) and the clipped gradients."""
-    gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    scale = min(opt["grad_clip"] / max(float(gn), 1e-9), 1.0)
-    grads = [g * scale for g in grads]
-    lr = learning_rate(opt, step)
-    b1, b2, eps = opt["b1"], opt["b2"], opt["eps"]
-    bc1, bc2 = 1.0 - b1 ** (step + 1), 1.0 - b2 ** (step + 1)
-    out_p, out_m, out_v = [], [], []
-    for p, g, mi, vi in zip(params, grads, m, v):
-        mn = b1 * mi + (1 - b1) * g
-        vn = b2 * vi + (1 - b2) * g * g
-        delta = (mn / bc1) / (torch.sqrt(vn / bc2) + eps)
-        wd = opt["weight_decay"] if p.ndim >= 2 else 0.0
-        out_p.append(p - lr * (delta + wd * p))
-        out_m.append(mn)
-        out_v.append(vn)
-    return out_p, out_m, out_v, grads
-
 
 def train_steps(params: dict, cfg: dict, opt: dict, batches: list,
                 pr: Optional[Precision] = None) -> dict:
-    """Run ``len(batches)`` steps from ``params`` (consumed); returns the
-    losses, the per-leaf norms of the first (clipped) gradient and of
-    the change of each parameter over all the steps."""
-    names = [n for n, _ in flatten(params)]
-    p = [leaf.detach() for _, leaf in flatten(params)]
-    start = [x.clone() for x in p]
-    m = [torch.zeros_like(x) for x in p]
-    v = [torch.zeros_like(x) for x in p]
-    losses, first_grad = [], None
-    for step, (tokens, labels) in enumerate(batches):
-        leaves = [x.requires_grad_(True) for x in p]
-        loss = loss_fn(unflatten(list(zip(names, leaves))), cfg, tokens,
-                       labels, pr)
-        grads = torch.autograd.grad(loss, leaves)
-        losses.append(float(loss.detach()))
-        with torch.no_grad():
-            p, m, v, clipped = adamw_step([x.detach() for x in leaves],
-                                          list(grads), m, v, step, opt)
-        if first_grad is None:
-            first_grad = {n: float(torch.linalg.vector_norm(g))
-                          for n, g in zip(names, clipped)}
-        del grads, clipped, leaves, loss
-    change = {n: float(torch.linalg.vector_norm(a - b))
-              for n, a, b in zip(names, p, start)}
-    return {"losses": losses, "grad_norms": first_grad,
-            "change_norms": change}
+    """``adamw.train_steps`` over this model's loss."""
+    return adamw.train_steps(
+        lambda p, tokens, labels: loss_fn(p, cfg, tokens, labels, pr),
+        params, opt, batches)

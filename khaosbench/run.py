@@ -48,13 +48,13 @@ def parse(argv):
 
 
 def result(run, bench: dict, cell: dict, traced: bool, device: dict,
-           checks: dict) -> dict:
+           checks: dict, here=None) -> dict:
     from khaosbench import spec
 
     rec = run.rec
     metrics = {}
     for m in spec.metrics_for(bench, cell["name"], traced):
-        value = spec.reader(m["name"])(rec)
+        value = spec.reader(m["name"], here or spec.HERE)(rec)
         if value is None:
             if traced:
                 continue            # nothing to read: the metric is left out
@@ -78,23 +78,25 @@ def result(run, bench: dict, cell: dict, traced: bool, device: dict,
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float,
              traced: bool, device="cuda", cfg=None, traffic=None,
-             started: float = STARTED) -> tuple[dict, dict]:
+             started: float = STARTED, here=None) -> tuple[dict, dict]:
     """Set-up, window and checks of cell ``name``: its result object, and
     notes for the log (set-up times, triggers, restores).
     ``cfg``/``traffic`` stand in for the cell's files (the CPU tests run
-    it at small sizes)."""
+    it at small sizes); ``here`` is the directory the cell's files are
+    found in by name (``khaosbench/``)."""
     from khaosbench import spec
     from khaosbench.harness import CellRun
 
+    here = here or spec.HERE
     cell = spec.cell(bench, name)
-    cfg = cfg or spec.config(bench, cell["config"])
-    traffic = traffic or spec.traffic(cell["traffic"])
+    cfg = cfg or spec.config(bench, cell["config"], here.parent)
+    traffic = traffic or spec.traffic(cell["traffic"], here)
     run = CellRun(cfg, traffic, seed, seconds, traced, device,
-                  started=started)
+                  started=started, here=here)
     run.setup()
     run.window()
     dev, checks = run.finish()
-    out = result(run, bench, cell, traced, dev, checks)
+    out = result(run, bench, cell, traced, dev, checks, here)
     rec = run.rec
     traced = rec.traced_step_walls
     notes = {"setup": {k: round(v, 3) for k, v in rec.setup_parts.items()},
@@ -105,8 +107,10 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
              "restores": [(round(r["t"], 3), round(r["duration_s"], 4))
                           for r in rec.restores],
              "failures": rec.failures}
-    if rec.expert_loads:
-        notes["expert_loads"] = rec.expert_loads
+    if rec.spans is not None:           # the program's, over the window
+        names = [sp["name"] for sp in rec.spans if sp["start"] >= 0]
+        notes["spans"] = {n: names.count(n) for n in sorted(set(names))}
+    notes.update(rec.observed)
     return out, notes
 
 

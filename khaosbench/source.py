@@ -6,7 +6,11 @@ handed to the job through its own stream and batcher.
 backlog after an outage, or a replay); a ``poisson`` mix has
 ``round(rate * seconds)`` events at sorted uniform times over the window
 (a Poisson process given its count, so every seed offers the same number
-of events, in another order of gaps).
+of events, in another order of gaps).  With ``count_every_s`` the count
+is fixed in every interval of that length too (``round(rate * t)``
+events by each multiple ``t`` of it), each interval's events at uniform
+times inside it: every seed offers the same work in every second, and
+the seed draws only where in its second each event falls.
 
 ``WallClockStream`` is an ``EventStream`` whose producer is the wall
 clock: an event exists once its creation time has passed, whatever the
@@ -40,9 +44,15 @@ def arrivals(traffic: dict, seed: int, seconds: float) -> Optional[np.ndarray]:
         return None
     if traffic["source"] != "poisson":
         raise ValueError(f"unknown source {traffic['source']!r}")
-    n = int(round(traffic["rate_events_per_s"] * seconds))
+    rate = traffic["rate_events_per_s"]
+    every = traffic.get("count_every_s", seconds)
+    edges = np.append(np.arange(0.0, seconds, every), seconds)
+    counts = np.diff(np.round(rate * edges).astype(np.int64))
     rng = np.random.default_rng([seed, 0x5EED])
-    return np.sort(rng.uniform(0.0, seconds, n))
+    if len(counts) == 1:
+        return np.sort(rng.uniform(0.0, seconds, int(counts[0])))
+    return np.sort(rng.uniform(np.repeat(edges[:-1], counts),
+                               np.repeat(edges[1:], counts)))
 
 
 class WallClockStream(EventStream):

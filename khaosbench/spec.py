@@ -1,14 +1,17 @@
 """The benchmark's definition, found by name: ``BENCHMARK.json`` at the
 repository's root names the cells; each configuration is
 ``khaosbench/configs/<config>.json``, each traffic mix
-``khaosbench/traffic/<traffic>.json`` and each metric
-``khaosbench/metrics/<metric>.py`` (a module with ``read(record)``).
-Adding a cell, a configuration, a mix or a metric is adding its file and
-its entry; nothing here names one."""
+``khaosbench/traffic/<traffic>.json``, each metric
+``khaosbench/metrics/<metric>.py`` (a module with ``read(record)``) and
+each architecture ``khaosbench/models/<model>.py``, the module a
+configuration names by its ``"model"`` key (what it owes:
+``models/decoder.py``).  Adding a cell, a configuration, a mix, a metric
+or a model is adding its files and its entry; nothing here names one."""
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -47,11 +50,21 @@ def metrics_for(bench: dict, cell_name: str, traced: bool) -> list:
     return out
 
 
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = mod      # a dataclass in it looks itself up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(name: str, here: Path = HERE):
     """The ``read`` function of ``metrics/<name>.py``."""
-    path = here / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "khaosbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(here / "metrics" / f"{name}.py",
+                 "khaosbench_metric_" + name.replace(".", "_")).read
+
+
+def model(name: str, here: Path = HERE):
+    """The model module ``models/<name>.py``."""
+    return _load(here / "models" / f"{name}.py",
+                 "khaosbench_model_" + name.replace(".", "_").replace("-", "_"))

@@ -88,18 +88,28 @@ def event_skipped(monkeypatch):
     monkeypatch.setattr(pipeline.StreamingBatcher, "next_batch", next_batch)
 
 
-def _run(cfg_name="yi-6b.2l"):
+def _run(cfg_name="yi-6b.2l", traced=False):
     cfg = smoke_config(cfg_name, "float32")
     traffic = smoke_traffic("chaos.ci1", rate_events_per_s=20.0, ci_s=0.2)
-    return runner.run_cell(BENCH, "yi6b.chaos.ci1", 2 ** 31 + 99, 4.0, False,
+    return runner.run_cell(BENCH, "yi6b.chaos.ci1", 2 ** 31 + 99, 4.0, traced,
                            "cpu", cfg=cfg, traffic=traffic)[0]
 
 
 def test_the_sound_program_is_correct():
     out = _run()
     assert out["correct"], out["checks"]
-    assert set(out["metrics"]) == {"recovery_s", "setup_s"}
+    assert set(out["metrics"]) == {"tokens_per_s", "setup_s"}
     assert list(out)[-1] == "checks"
+
+
+def test_a_traced_run_reads_the_restore_and_the_catch_up():
+    out = _run(traced=True)
+    assert out["correct"], out["checks"]
+    got = {k: v["value"] for k, v in out["metrics"].items()}
+    assert {"backlog_recovery_s", "downtime_s", "ckpt_restore_ms",
+            "event_latency_p95_ms"} <= set(got)
+    assert 0 < got["downtime_s"] <= got["backlog_recovery_s"]
+    assert got["ckpt_restore_ms"] < 1e3 * got["downtime_s"]
 
 
 @pytest.mark.parametrize("fault", [unchanged_state, half_batch,

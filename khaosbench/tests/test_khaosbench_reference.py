@@ -1,7 +1,9 @@
 """The float32 reference against the port at the SMOKE sizes on the CPU
 (the trainer's first steps, and the int8 codec's payload decoded), and
 the control: the reference in float8 in the program's place fails the
-configured limits."""
+configured limits.  The benchmark's weights at the SMOKE sizes are pinned
+by a checksum."""
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -12,8 +14,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
+from khaosbench import spec  # noqa: E402
 from khaosbench.control import readings  # noqa: E402
 from khaosbench.reference.codec import worst_error_over_bound  # noqa: E402
+from khaosbench.reference.tree import flatten  # noqa: E402
+from khaosbench.weights import make_params  # noqa: E402
 from smoke_cells import smoke_config  # noqa: E402
 
 CONFIGS = ["yi-6b.2l", "olmoe-1b-7b.1l"]
@@ -26,6 +31,26 @@ def test_reference_follows_the_port_in_float32(name):
     assert p["token_mismatch"] == 0
     assert p["loss_gap"] < 1e-5
     assert p["grad_norm_gap"] < 1e-4 and p["change_norm_gap"] < 1e-4
+
+
+# sha256 over each leaf's name and float32 bytes, in the tree's order, of
+# the weights made from seed 7 on the CPU at the SMOKE sizes
+SMOKE_WEIGHTS = {
+    "yi-6b.2l":
+        "b12d244652be35ae61d2cdd9fed45e5931f760e64b7b79827df4fa2ee7f09ecf",
+    "olmoe-1b-7b.1l":
+        "97939208f0c2470bdbcd80464f5edaf0fbb4ffe6d527f50647d9f1f22849e3cc"}
+
+
+@pytest.mark.parametrize("name", sorted(SMOKE_WEIGHTS))
+def test_smoke_weights_are_unchanged(name):
+    cfg = smoke_config(name)
+    params = make_params(spec.model(cfg["model"]).param_shapes(cfg), 7, "cpu")
+    h = hashlib.sha256()
+    for leaf, x in flatten(params):
+        h.update(leaf.encode())
+        h.update(x.numpy().tobytes())
+    assert h.hexdigest() == SMOKE_WEIGHTS[name]
 
 
 CELL_CONFIGS = [c["name"] for c in json.loads(

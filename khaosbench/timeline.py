@@ -58,6 +58,16 @@ def recovery_times(log: list, failures: list, arrivals: np.ndarray,
     return out
 
 
+def downtimes(log: list, failures: list, window_s: float) -> list:
+    """For each failure ``(t, backlog_before)``: seconds until the first
+    restore after it has ended; the window's end where none has."""
+    out = []
+    for tf, _ in failures:
+        ends = [e[1] for e in log if e[0] == "restore" and e[1] >= tf]
+        out.append((min(ends) if ends else window_s) - tf)
+    return out
+
+
 def cursor_violations(log: list, cursor0: int, step0: int,
                       final_cursor: int, final_step: int) -> int:
     """Breaks of exactly-once processing: each step must take the offsets

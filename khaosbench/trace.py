@@ -1,12 +1,17 @@
 """Reduction of a ``torch.profiler`` trace of part of the window: the
 device's busy time (the union of every kernel, copy and set on the card),
 time by device operation, and the device's idle time grouped by what the
-host was doing (the benchmark's own ``khaosbench.*`` host spans)."""
+host was doing: the benchmark's own ``khaosbench.*`` spans and the
+program's ``repro_torch.*`` spans (its tracer's, on in a traced window).
+Both are host spans; the profiler's twin of each on the device's timeline
+is no work."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 HOST_PREFIX = "khaosbench."
+PROGRAM_PREFIX = "repro_torch."
+SPAN_PREFIXES = (HOST_PREFIX, PROGRAM_PREFIX)
 
 
 @dataclass
@@ -42,10 +47,18 @@ def _union(intervals: list) -> list:
     return out
 
 
+def _label(name: str) -> str:
+    for prefix in SPAN_PREFIXES:
+        if name.startswith(prefix):
+            return name[len(prefix):]
+    return name
+
+
 def summarize(device: list, host: list, t0: float, t1: float) -> TraceSummary:
     """``device``: (name, start_us, end_us) of every device activity;
-    ``host``: (label, start_us, end_us) of the benchmark's host spans;
-    [t0, t1] the traced window in the same microseconds."""
+    ``host``: (name, start_us, end_us) of the host spans, the benchmark's
+    and the program's, each labelled without its prefix; [t0, t1] the
+    traced window in the same microseconds."""
     op_s: dict = {}
     op_count: dict = {}
     for name, a, b in device:
@@ -68,7 +81,7 @@ def summarize(device: list, host: list, t0: float, t1: float) -> TraceSummary:
         label = "other"
         for name, s0, s1 in spans:      # innermost span covering the gap
             if s0 <= mid <= s1:
-                label = name[len(HOST_PREFIX):]
+                label = _label(name)
         idle[label] = idle.get(label, 0.0) + (b - a) / 1e6
     return TraceSummary((t1 - t0) / 1e6, busy_s, op_s, op_count, idle)
 
@@ -80,7 +93,7 @@ def from_profiler(prof) -> TraceSummary:
     t0, t1 = float("inf"), float("-inf")
     for e in prof.events():
         a, b = e.time_range.start, e.time_range.end
-        if e.name.startswith(HOST_PREFIX):
+        if e.name.startswith(SPAN_PREFIXES):
             # a host span; its twin on the device's timeline is no work
             if e.device_type.name != "CUDA":
                 host.append((e.name, a, b))

@@ -1,18 +1,18 @@
 """The benchmark's weights: made on the device from the seed, in one draw
-of a ``torch.Generator`` on that device, in the parameter tree of
-``reference.model.param_shapes``.  The same seed on the same device gives
+of a ``torch.Generator`` on that device, in the parameter tree of the
+model module's ``param_shapes``.  The same seed on the same device gives
 the same weights, so the reference makes them again after the window."""
 from __future__ import annotations
 
 import torch
 
-from khaosbench.reference.model import flatten, param_shapes, unflatten
+from khaosbench.reference.tree import flatten, unflatten
 
 
-def make_params(cfg: dict, seed: int, device) -> dict:
-    """float32 params: normal(0, std) for the matrices, ones for the norm
-    scales."""
-    leaves = flatten(param_shapes(cfg))
+def make_params(shapes: dict, seed: int, device) -> dict:
+    """float32 params of the tree ``shapes`` of (shape, std) leaves:
+    normal(0, std), or ones where the std is None (the norm scales)."""
+    leaves = flatten(shapes)
     sizes = [torch.Size(shape).numel() for _, (shape, std) in leaves
              if std is not None]
     gen = torch.Generator(device=device).manual_seed(seed)
